@@ -32,3 +32,8 @@ if jax.config.jax_platforms != "cpu":
         pass
 assert jax.default_backend() == "cpu", jax.default_backend()
 assert jax.device_count() == 8, jax.device_count()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips where torch sees none")

@@ -1,0 +1,71 @@
+"""Build the port's CUDA sources into shared libraries at first use.
+
+Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
+for Hopper (``sm_90a``) into ``vista_slam_tpu_torch/_build/``, then loaded
+with ``ctypes``. The library's file name carries a hash of the source and
+the flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
+                 "/usr/local/cuda"):
+        if home and os.path.exists(os.path.join(home, "bin", "nvcc")):
+            return os.path.join(home, "bin", "nvcc")
+    nvcc = shutil.which("nvcc")
+    if nvcc is None:
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                           "to build the port's CUDA kernels")
+    return nvcc
+
+
+class BuiltLibrary:
+    """A loaded kernel library plus what its build reported."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, seconds: float, log: str):
+        self.lib = lib
+        self.path = path
+        self.seconds = seconds  # 0.0 when an existing build was reused
+        self.log = log          # nvcc/ptxas output (registers, spills)
+
+
+def build(source: str) -> BuiltLibrary:
+    """Compile ``csrc/<source>`` (if its build is missing) and load it."""
+    src = CSRC_DIR / source
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    stem = f"lib{src.stem}_{digest.hexdigest()[:12]}"
+    out = BUILD_DIR / f"{stem}.so"
+    log_path = BUILD_DIR / f"{stem}.log"
+    seconds = 0.0
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.so"
+        t0 = time.perf_counter()
+        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log_path.write_text(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
+                               f"{proc.stdout}{proc.stderr}")
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    log = log_path.read_text() if log_path.exists() else ""
+    return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
