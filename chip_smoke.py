@@ -5,21 +5,43 @@ Run from the repository root:  python3 chip_smoke.py
 
 Phases, each printed on its own lines; any failure exits non-zero:
   1. device  — nvidia-smi name and power limit, torch / CUDA versions;
-  2. build   — kernel K1 (csrc/flash_attn_fwd.cu) compiled with nvcc for sm_90a;
+  2. build   — kernels K1 (csrc/flash_attn_fwd.cu), K2a/K2b
+               (csrc/flash_attn_bwd.cu) and K5 (csrc/adamw_bf16.cu),
+               one nvcc each for sm_90a, all started together; ptxas
+               register and spill lines;
   3. K1      — the kernel against its plain PyTorch version at every shape
-               of the main path, bf16 and fp32: finiteness, max errors,
-               kernel and plain times (CUDA events, median after warm-up);
-  4. SVD     — the pose head's 9D SVD projection on the card against a
+               of the SLAM and training paths, bf16 and fp32: finiteness,
+               max errors, kernel and plain times (CUDA events, median
+               after warm-up);
+  4. K2      — K2a (dq) and K2b (dk, dv) against their plain versions at
+               the training path's shapes, bf16 and fp32, and their times;
+  5. K5      — the fused bf16-moment AdamW against its plain version at the
+               model's largest and smallest eligible leaves, and its times;
+  6. SDPA    — torch's scaled_dot_product_attention forward and backward
+               at the K1/K2 timed shapes: a yardstick, never on the path;
+  7. SVD     — the pose head's 9D SVD projection on the card against a
                float64 host reference and the Newton ('9D_stable') variant;
-  5. agree   — a small fp32 STA forward on the card (kernel path) against
+  8. agree   — a small fp32 STA forward on the card (kernel path) against
                the same weights on the CPU (plain path);
-  6. slice   — configs/highres.yaml's model and SLAM settings at full
+  9. train-agree — a small fp32 model trained 3 steps on the card (K1, K2a,
+               K2b, K5) and on the CPU (plain versions) from the same
+               weights and batches: losses, gradients, parameter updates;
+ 10. slice   — configs/highres.yaml's model and SLAM settings at full
                width (24x1024 encoder, 12x768 decoder, 384x512 input),
                random weights from a seeded torch.Generator, stride-1
                keyframing over frames rendered in memory from a synthetic
                box scene, through the port's run_sequence and its final
                PGO; checks the keyframe count, a finite [V,4,4]
-               trajectory and that every attention launched K1.
+               trajectory and that every attention launched K1;
+ 11. train slice — the same model fine-tuned at 384x512 with
+               configs/train_fast.yaml's hyper-parameters and the
+               bf16_fused optimizer, batch 2 with 3 supports
+               (vista_slam_tpu_torch/train/finetune.py), 4 steps
+               through make_train_step: loss per step, ms per step, peak
+               memory, finite loss and gradients, parameters moved by step
+               3, and K1/K2a/K2b/K5 launch counts equal to those derived
+               from the model, with no plain attention.
+Each launch count is set to 0 just before a path runs and read just after.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the port next to
 this file, it fails and prints no result.
@@ -45,11 +67,14 @@ HIGHRES = {
 }
 N_FRAMES = 11  # stride-1 keyframing starts at frame 1: 10 keyframes
 
-K1_SHAPES = (  # (q shape, Nk) at the main path's calls
-    ((1, 16, 768, 64), 768),    # encoder, one frame
-    ((8, 16, 768, 64), 768),    # encoder, batch of 8 keyframes
-    ((2, 12, 769, 64), 769),    # decoder self/cross, 1 pair (both directions)
-    ((16, 12, 769, 64), 769),   # decoder self/cross, 8 pairs
+K1_SHAPES = (  # (q shape, Nk) at the main paths' calls
+    ((1, 16, 768, 64), 768),    # SLAM encoder, one frame
+    ((8, 16, 768, 64), 768),    # SLAM encoder, batch of 8 keyframes
+    ((2, 12, 769, 64), 769),    # SLAM decoder self/cross, 1 pair (both directions)
+    ((16, 12, 769, 64), 769),   # SLAM decoder self/cross, 8 pairs
+    ((2, 16, 768, 64), 768),    # training encoder, the batch's main views
+    ((6, 16, 768, 64), 768),    # training encoder, the batch's 3 x 2 supports
+    ((12, 12, 769, 64), 769),   # training decoder, 6 pairs, both directions
     ((2, 3, 130, 64), 260),     # Nq != Nk
 )
 K1_TIMED_AT = (16, 12, 769, 64)
@@ -124,7 +149,173 @@ def check_k1(card: str) -> dict:
     return {"max_abs_err": worst_bf16, "ms": timed[0], "plain_ms": timed[1]}
 
 
-def check_svd() -> None:
+TRAIN_STEPS = 4  # of the full-width fine-tune (vista_slam_tpu_torch/train/finetune.py)
+K2_SHAPES = (  # (q shape, Nk) at the training slice's attention calls
+    ((2, 16, 768, 64), 768),    # encoder, the batch's main views
+    ((6, 16, 768, 64), 768),    # encoder, the batch's 3 x 2 support views
+    ((12, 12, 769, 64), 769),   # decoder self/cross, 6 pairs, both directions
+    ((2, 3, 130, 64), 260),     # Nq != Nk
+)
+K2_TIMED_AT = (12, 12, 769, 64)
+# normwise: max abs error over the plain result's largest magnitude
+K2_TOL = {"bf16": 2e-2, "fp32": 1e-4}
+K5_TOL = {"p": 1e-6, "moments": 8e-3}  # normwise; bf16 moments: one ulp is 2^-8
+H100 = {"bf16_flops": 989e12, "fp32_flops": 67e12, "bytes": 3.35e12}
+
+
+def bound(flops: float, nbytes: float, peak: str = "bf16_flops") -> tuple[float, str]:
+    """Least time on the card (ms) and what bounds it: the larger of the
+    operations over the peak rate of their type and the bytes over the
+    memory rate (H100 SXM data sheet, dense)."""
+    t_ops, t_bytes = flops / H100[peak], nbytes / H100["bytes"]
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_bounds(qshape, nk, itemsize: int) -> dict:
+    """Bounds of K1, K2a and K2b at one shape: flops of the products,
+    bytes of each input read once and each output written once."""
+    B, H, Nq, D = qshape
+    bh, qd, kd = B * H, B * H * Nq * D, B * H * nk * D
+    rows = 4 * bh * Nq  # one fp32 per query row (lse, delta)
+    return {
+        "K1": bound(4 * bh * Nq * nk * D, itemsize * (2 * qd + 2 * kd) + rows),
+        "K2a": bound(6 * bh * Nq * nk * D, itemsize * (3 * qd + 2 * kd) + 2 * rows),
+        "K2b": bound(8 * bh * Nq * nk * D, itemsize * (2 * qd + 4 * kd) + 2 * rows),
+    }
+
+
+def check_k2(card: str) -> dict:
+    import torch
+
+    from vista_slam_tpu_torch.kernels import flash_attn as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    worst = {"K2a": 0.0, "K2b": 0.0}
+    timed = {}
+    for dtype, tname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        for qshape, nk in K2_SHAPES:
+            B, H, Nq, D = qshape
+
+            def rnd(*shape):
+                return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+            q, k, v, do = rnd(B, H, Nq, D), rnd(B, H, nk, D), rnd(B, H, nk, D), rnd(B, H, Nq, D)
+            scale = D ** -0.5
+            out, lse = fa.flash_attention(q, k, v, scale)
+            delta = (do.float() * out.float()).sum(-1).reshape(B * H, Nq)
+            args = (q, k, v, do, lse, delta, scale)
+            dq = fa.flash_attention_bwd_dq(*args)
+            dk, dv = fa.flash_attention_bwd_dkv(*args)
+            torch.cuda.synchronize()
+            ref = fa.flash_attention_bwd_plain(*args)
+            errs, abs_errs = {}, {}
+            for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"K2 {tname} {qshape} {name}: non-finite")
+                e = (got.float() - want.float()).abs().max().item()
+                abs_errs[name] = e
+                errs[name] = e / max(want.float().abs().max().item(), 1e-6)
+            ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(*args))
+            ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+            plain_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq_plain(*args))
+            plain_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args))
+            tol = K2_TOL[tname]
+            log(f"K2 {tname} q{list(qshape)} nk={nk}: normwise err "
+                + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                + f" (tol {tol:g}); K2a {ms_dq:.4f} ms vs plain {plain_dq:.4f} ms, "
+                f"K2b {ms_dkv:.4f} ms vs plain {plain_dkv:.4f} ms [{card}]")
+            if max(errs.values()) > tol:
+                raise AssertionError(f"K2 {tname} {qshape}: errors {errs} over {tol}")
+            if dtype == torch.bfloat16:
+                worst["K2a"] = max(worst["K2a"], abs_errs["dq"])
+                worst["K2b"] = max(worst["K2b"], abs_errs["dk"], abs_errs["dv"])
+                if qshape == K2_TIMED_AT:
+                    timed = {"K2a": (ms_dq, plain_dq), "K2b": (ms_dkv, plain_dkv)}
+    return {name: {"max_abs_err": worst[name], "ms": timed[name][0],
+                   "plain_ms": timed[name][1]} for name in worst}
+
+
+def time_sdpa(card: str) -> dict:
+    """Yardstick only, never on the port's path: one PyTorch
+    scaled_dot_product_attention call forward, and its backward through
+    autograd, at the K1/K2 timed shapes (bf16)."""
+    import torch
+    import torch.nn.functional as F
+
+    out = {}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for tag, (qshape, nk) in (("fwd_K1", (K1_TIMED_AT, 769)), ("K2", (K2_TIMED_AT, 769))):
+        B, H, Nq, D = qshape
+        q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
+                       for s in ((B, H, Nq, D), (B, H, nk, D), (B, H, nk, D), (B, H, Nq, D)))
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qg, kg, vg)
+        bwd = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), do, retain_graph=True))
+        out[tag] = (fwd, bwd)
+        log(f"SDPA (yardstick, not on the path) bf16 q{list(qshape)}: forward "
+            f"{fwd:.4f} ms, backward {bwd:.4f} ms [{card}]")
+    return {"K1": out["fwd_K1"][0], "K2_bwd": out["K2"][1]}
+
+
+def k5_leaf_sizes() -> tuple[int, int]:
+    """The largest and the smallest leaf of the training slice's model that
+    K5 takes (numel >= 2048 and a multiple of 1024), from a meta-device
+    build (shapes only)."""
+    import torch
+
+    from vista_slam_tpu_torch.models.sta import STA
+    from vista_slam_tpu_torch.train import finetune
+    from vista_slam_tpu_torch.train.quantized_opt import fused_eligible
+
+    with torch.device("meta"):
+        model = STA(finetune.model_config())
+    sizes = [p.numel() for p in model.parameters() if fused_eligible(p)]
+    return max(sizes), min(sizes)
+
+
+def check_k5(card: str) -> dict:
+    import torch
+
+    from vista_slam_tpu_torch.kernels import adamw
+
+    hp = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.05)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    result = {}
+    for n in k5_leaf_sizes():
+        p = torch.randn(n, generator=gen, device="cuda")
+        g = torch.randn(n, generator=gen, device="cuda") * 1e-2
+        mu = (torch.randn(n, generator=gen, device="cuda") * 1e-3).to(torch.bfloat16)
+        nu = (torch.rand(n, generator=gen, device="cuda") * 1e-4).to(torch.bfloat16)
+        scalars = torch.tensor([0.7, 1.5e-5, 1 - 0.9 ** 3, 1 - 0.95 ** 3], device="cuda")
+        mine = [t.clone() for t in (p, mu, nu)]
+        ref = [t.clone() for t in (p, mu, nu)]
+        adamw.fused_adamw_bf16(mine[0], g, mine[1], mine[2], scalars, **hp)
+        torch.cuda.synchronize()
+        adamw.fused_adamw_bf16_plain(ref[0], g, ref[1], ref[2], scalars, **hp)
+        errs, abs_err = {}, 0.0
+        for name, got, want in zip(("p", "mu", "nu"), mine, ref):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"K5 n={n} {name}: non-finite")
+            e = (got.float() - want.float()).abs().max().item()
+            abs_err = max(abs_err, e)
+            errs[name] = e / max(want.float().abs().max().item(), 1e-30)
+        ms = cuda_ms(lambda: adamw.fused_adamw_bf16(p, g, mu, nu, scalars, **hp))
+        plain_ms = cuda_ms(lambda: adamw.fused_adamw_bf16_plain(p, g, mu, nu, scalars, **hp))
+        b_ms, b_by = bound(16 * n, 20 * n, "fp32_flops")
+        log(f"K5 n={n}: normwise err " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+            + f" (tol p {K5_TOL['p']:g}, moments {K5_TOL['moments']:g}); kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        if errs["p"] > K5_TOL["p"] or max(errs["mu"], errs["nu"]) > K5_TOL["moments"]:
+            raise AssertionError(f"K5 n={n}: errors {errs} over tolerance")
+        if not result:  # the largest leaf is timed
+            result = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+                      "bound_ms": b_ms, "bound_by": b_by, "n": n}
+        result["max_abs_err"] = max(result["max_abs_err"], abs_err)
+    return result
+
+
+def check_svd(card: str) -> None:
     import torch
 
     from vista_slam_tpu_torch.models.heads import (svd_orthogonalize,
@@ -146,12 +337,13 @@ def check_svd() -> None:
     near = (rot + 0.01 * torch.randn(rot.shape, generator=gen)).cuda()
     newton = (svd_orthogonalize_stable(near) - svd_orthogonalize(near)).abs().max().item()
     log(f"SVD 9D on the card vs float64 host: max err {err:.3e}, |RR^T - I| "
-        f"{orth:.3e}, |det - 1| {det:.3e}; 9D_stable vs 9D near rotations {newton:.3e}")
+        f"{orth:.3e}, |det - 1| {det:.3e}; 9D_stable vs 9D near rotations {newton:.3e} "
+        f"[{card}]")
     if not (err < 1e-4 and orth < 1e-4 and det < 1e-4 and newton < 5e-3):
         raise AssertionError("pose-head SVD on the card disagrees")
 
 
-def check_small_agreement() -> None:
+def check_small_agreement(card: str) -> None:
     import torch
 
     from vista_slam_tpu_torch.kernels import flash_attn as fa
@@ -179,7 +371,7 @@ def check_small_agreement() -> None:
         # normwise: max abs error over the tensor's largest magnitude
         errs[k] = ((g - want[k]).abs().max() / want[k].abs().max().clamp_min(1e-6)).item()
     log("small fp32 STA forward, card (K1) vs CPU (plain): normwise rel err "
-        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" [{card}]")
     if max(errs.values()) > 1e-3:
         raise AssertionError(f"small forward disagrees: {errs}")
 
@@ -188,7 +380,7 @@ def run_slice(card: str) -> int:
     import numpy as np
     import torch
 
-    from vista_slam_tpu_torch.utils.synthetic_scene import BoxScene, orbit_trajectory
+    from vista_slam_tpu_torch.datasets.synthetic_scene import BoxScene, orbit_trajectory
     from vista_slam_tpu_torch.cli.common import build_slam, select_stride_indices
     from vista_slam_tpu_torch.cli.run import PREFETCH_CHUNK, run_sequence
     from vista_slam_tpu_torch.kernels import flash_attn as fa
@@ -210,7 +402,8 @@ def run_slice(card: str) -> int:
     slam = build_slam(cfg)
     torch.cuda.synchronize()
     log(f"slice: model built in {time.perf_counter() - t0:.2f} s "
-        f"({sum(p.numel() for p in slam.frontend.model.parameters()) / 1e6:.1f} M params)")
+        f"({sum(p.numel() for p in slam.frontend.model.parameters()) / 1e6:.1f} M params) "
+        f"[{card}]")
     mc = slam.frontend.cfg
     n_kf = len(select_stride_indices(N_FRAMES, cfg.stride, cfg.max_view_num))
     # every encode call (batched ahead in stride mode) runs enc_depth self-
@@ -247,6 +440,160 @@ def run_slice(card: str) -> int:
     return launches
 
 
+def check_train_agree(card: str) -> None:
+    """A small fp32 train step on the card (K1, K2a, K2b, K5) against the
+    same weights and batches on the CPU (plain versions), 3 steps. Held:
+    the loss of every step (1e-4 relative); the step-1 gradients, taken at
+    the same parameters on both sides, as one vector (1e-4 relative 2-norm)
+    and per leaf (1e-2 normwise); and the parameter updates after 3 steps
+    as one vector (1e-2 relative 2-norm: Adam moves an element by about lr
+    whatever its gradient's size, so an element whose tiny gradient has the
+    other sign on the card moves the other way; such elements are few)."""
+    import torch
+
+    from vista_slam_tpu_torch.kernels import adamw
+    from vista_slam_tpu_torch.kernels import flash_attn as fa
+    from vista_slam_tpu_torch.models.sta import STA
+    from vista_slam_tpu_torch.train import finetune
+    from vista_slam_tpu_torch.train.step import make_train_step
+
+    cfg = finetune.model_config(img_size=(64, 96), enc_dim=64, enc_depth=2, enc_heads=1,
+                                dec_dim=128, dec_depth=2, dec_heads=2, mlp_ratio=2,
+                                compute_dtype=torch.float32)
+    batches = finetune.batches((64, 96), 3)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = STA(cfg).init_weights_(torch.Generator().manual_seed(8))
+        p0 = {n: p.detach().clone() for n, p in model.named_parameters()}
+        # the lr reaches its peak 1e-4 at step 3 (warm-up 2 steps)
+        step_fn = make_train_step(model, finetune.optimizer(1e-4, 2, 20),
+                                  finetune.n_support(), device=dev)
+        before = (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV, adamw.LAUNCHES)
+        losses, grads = [], None
+        for b in batches:
+            losses.append(step_fn(b)[0].item())
+            if grads is None:
+                grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                         if p.grad is not None}
+        after = (fa.LAUNCHES, fa.LAUNCHES_DQ, fa.LAUNCHES_DKV, adamw.LAUNCHES)
+        runs[dev] = (losses, grads,
+                     {n: p.detach().cpu() - p0[n] for n, p in model.named_parameters()},
+                     [a - b for a, b in zip(after, before)])
+    (l_cpu, g_cpu, d_cpu, n_cpu), (l_gpu, g_gpu, d_gpu, n_gpu) = runs["cpu"], runs["cuda"]
+    attn = 3 * 2 * (cfg.enc_depth + cfg.dec_depth)
+    if n_cpu != [0, 0, 0, 0] or n_gpu[:3] != [attn] * 3 or n_gpu[3] == 0:
+        raise AssertionError(f"train-agree launches: CPU {n_cpu}, card {n_gpu} "
+                             f"(want 0 on the CPU, {attn} K1/K2a/K2b and some K5 on the card)")
+    if set(g_gpu) != set(g_cpu) or not all(
+            torch.isfinite(t).all() for d in (g_gpu, d_gpu) for t in d.values()):
+        raise AssertionError("train-agree: gradients missing or non-finite on the card")
+
+    def rel2(got: dict, want: dict) -> float:
+        num = sum(((got[n] - w) ** 2).sum() for n, w in want.items())
+        return (num / sum((w ** 2).sum() for w in want.values())).sqrt().item()
+
+    leaf = {n: ((g_gpu[n] - g).abs().max() / g.abs().max().clamp_min(1e-30)).item()
+            for n, g in g_cpu.items()}
+    worst = max(leaf, key=leaf.get)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    errs = {"loss": loss_err, "grads": rel2(g_gpu, g_cpu), "grad_leaf": leaf[worst],
+            "updates": rel2(d_gpu, d_cpu)}
+    log(f"train-agree (fp32, 3 steps, card kernels vs CPU plain): losses card "
+        f"{[round(x, 6) for x in l_gpu]} cpu {[round(x, 6) for x in l_cpu]}, rel err "
+        f"{loss_err:.2e} (tol 1e-4); step-1 grads rel 2-norm {errs['grads']:.2e} "
+        f"(tol 1e-4), worst leaf {worst} normwise {leaf[worst]:.2e} (tol 1e-2); "
+        f"updates after 3 steps rel 2-norm {errs['updates']:.2e} (tol 1e-2); "
+        f"launches K1/K2a/K2b/K5 {n_gpu} [{card}]")
+    tol = {"loss": 1e-4, "grads": 1e-4, "grad_leaf": 1e-2, "updates": 1e-2}
+    if any(errs[k] > tol[k] for k in tol):
+        raise AssertionError(f"train-agree: card and CPU disagree: {errs}")
+
+
+def run_train_slice(card: str) -> dict:
+    """The training slice at full width (train/finetune.py): highres.yaml's
+    model, train_fast's hyper-parameters, bf16_fused AdamW, TRAIN_STEPS
+    steps of batch finetune.BATCH through make_train_step."""
+    import torch
+
+    from vista_slam_tpu_torch.kernels import adamw
+    from vista_slam_tpu_torch.kernels import flash_attn as fa
+    from vista_slam_tpu_torch.ops import attention
+    from vista_slam_tpu_torch.train import finetune
+    from vista_slam_tpu_torch.train.quantized_opt import FusedBf16Leaf
+
+    hw, S = finetune.MODEL["img_size"], finetune.n_support()
+    t0 = time.perf_counter()
+    batches = finetune.batches(hw, TRAIN_STEPS)
+    log(f"train slice: {TRAIN_STEPS} batches of {finetune.BATCH} x (1 main + "
+        f"{S} supports) at {list(hw)} rendered in "
+        f"{time.perf_counter() - t0:.2f} s (host) [{card}]")
+    t0 = time.perf_counter()
+    model, opt, step_fn = finetune.build("cuda")
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    fused_leaves = sum(isinstance(m, FusedBf16Leaf) for m in opt.moments)
+    log(f"train slice: model built in {time.perf_counter() - t0:.2f} s "
+        f"({n_params / 1e6:.1f} M fp32 params, {len(opt.moments)} leaves, "
+        f"{fused_leaves} on K5) [{card}]")
+    # the reference's unused skip unit gets no gradient and no update
+    with_grad = fused_leaves - sum(
+        isinstance(m, FusedBf16Leaf) for (n, _), m in zip(model.named_parameters(), opt.moments)
+        if "refinenet4.resConfUnit1" in n)
+    per_step = 2 * (cfg.enc_depth + cfg.dec_depth)  # attention calls per step
+    expected = {"K1": per_step * TRAIN_STEPS, "K2a": per_step * TRAIN_STEPS,
+                "K2b": per_step * TRAIN_STEPS, "K5": with_grad * TRAIN_STEPS}
+    first = {n: p.detach().clone() for n, p in model.named_parameters()}
+
+    fa.reset_launches()
+    adamw.reset_launches()
+    attention.CALLS.update(flash=0, plain=0)
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, moved = [], [], {}
+    for k, batch in enumerate(batches):
+        t0 = time.perf_counter()
+        loss, _ = step_fn(batch, finetune.TRAIN["alpha_init"])
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        losses.append(loss.item())
+        grads_ok = torch.stack([torch.isfinite(p.grad).all() for p in model.parameters()
+                                if p.grad is not None]).all().item()
+        if not (math.isfinite(losses[-1]) and grads_ok):
+            raise AssertionError(f"train step {k + 1}: loss {losses[-1]}, finite "
+                                 f"gradients {grads_ok}")
+        moved[k + 1] = sum(not torch.equal(first[n], p) for n, p in model.named_parameters())
+    launches = {"K1": fa.LAUNCHES, "K2a": fa.LAUNCHES_DQ, "K2b": fa.LAUNCHES_DKV,
+                "K5": adamw.LAUNCHES}
+    calls = dict(attention.CALLS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(times[1:])
+    log(f"train slice: losses per step {losses}; ms per step {[round(t, 2) for t in times]} "
+        f"(step 1 cold), median of steps 2-{TRAIN_STEPS} {ms:.2f} ms = "
+        f"{finetune.BATCH * S / ms * 1e3:.2f} pairs/s; peak device memory "
+        f"{peak:.2f} GiB [{card}]")
+    log(f"train slice: params changed after each step {moved} (step 1 has lr 0); "
+        f"launches {launches} (expected {expected}), attention paths {calls}")
+    if moved[1] != 0 or moved[3] == 0:
+        raise AssertionError(f"params changed per step {moved}: want none after "
+                             "step 1 (lr 0) and some by step 3")
+    if launches != expected or calls != {"flash": expected["K1"], "plain": 0}:
+        raise AssertionError(f"train launches {launches} / paths {calls}, expected "
+                             f"{expected} and no plain attention")
+    return {"launches": launches, "ms_per_step": ms, "peak_gib": peak}
+
+
+KERNELS = {  # name, source, the TPU kernel it replaces
+    "K1": ("flash_attn_fwd", "vista_slam_tpu_torch/csrc/flash_attn_fwd.cu",
+           "vista_slam_tpu/ops/pallas/flash.py:76"),
+    "K2a": ("flash_attn_bwd_dq", "vista_slam_tpu_torch/csrc/flash_attn_bwd.cu",
+            "vista_slam_tpu/ops/pallas/flash.py:146"),
+    "K2b": ("flash_attn_bwd_dkv", "vista_slam_tpu_torch/csrc/flash_attn_bwd.cu",
+            "vista_slam_tpu/ops/pallas/flash.py:165"),
+    "K5": ("adamw_bf16", "vista_slam_tpu_torch/csrc/adamw_bf16.cu",
+           "vista_slam_tpu/ops/pallas/adam8.py:102"),
+}
+
+
 def main() -> int:
     try:
         import torch
@@ -257,6 +604,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this smoke run needs one GPU", file=sys.stderr)
         return 2
     try:
+        from vista_slam_tpu_torch.kernels import adamw, build
         from vista_slam_tpu_torch.kernels import flash_attn as fa
     except ImportError as e:
         print(f"chip_smoke: the port is not importable ({e}); run from the "
@@ -274,25 +622,49 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    built = fa.load()
-    log(f"build: K1 {built.path.name} in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {built.seconds:.2f} s)")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    sources = [fa.SOURCE, fa.SOURCE_BWD, adamw.SOURCE]
+    secs = build.build_many(sources)  # one nvcc per source, all at once
+    log(f"build: {', '.join(f'{s} (nvcc {t:.2f} s)' for s, t in secs.items())} "
+        f"in {time.perf_counter() - t0:.2f} s [{card}]")
+    for lib in (fa.load(), fa.load_bwd(), adamw.load()):
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"  ptxas {lib.path.name}: {line.strip()}")
 
     k1 = check_k1(card)
-    check_svd()
-    check_small_agreement()
-    launches = run_slice(card)
+    k2 = check_k2(card)
+    k5 = check_k5(card)
+    sdpa = time_sdpa(card)
+    check_svd(card)
+    check_small_agreement(card)
+    check_train_agree(card)
+    slam_launches = run_slice(card)
+    torch.cuda.empty_cache()
+    train = run_train_slice(card)
 
+    bounds = {**{k: v for k, v in attn_bounds(K1_TIMED_AT, 769, 2).items() if k == "K1"},
+              **{k: v for k, v in attn_bounds(K2_TIMED_AT, 769, 2).items() if k != "K1"},
+              "K5": (k5["bound_ms"], k5["bound_by"])}
+    timed = {"K1": dict(k1, library_ms=sdpa["K1"], timed_at=f"bf16 q{list(K1_TIMED_AT)}"),
+             "K2a": dict(k2["K2a"], library_ms=None, timed_at=f"bf16 q{list(K2_TIMED_AT)}"),
+             "K2b": dict(k2["K2b"], library_ms=None, timed_at=f"bf16 q{list(K2_TIMED_AT)}"),
+             "K5": dict(max_abs_err=k5["max_abs_err"], ms=k5["ms"], plain_ms=k5["plain_ms"],
+                        library_ms=None, timed_at=f"leaf of {k5['n']} params")}
+    by_path = {"K1": {"slam": slam_launches, "train": train["launches"]["K1"]},
+               "K2a": {"train": train["launches"]["K2a"]},
+               "K2b": {"train": train["launches"]["K2b"]},
+               "K5": {"train": train["launches"]["K5"]}}
+    log(f"SDPA backward (yardstick for K2a + K2b together, bf16 q{list(K2_TIMED_AT)}): "
+        f"{sdpa['K2_bwd']:.4f} ms vs K2a + K2b {k2['K2a']['ms'] + k2['K2b']['ms']:.4f} ms "
+        f"[{card}]")
     log(json.dumps({"kernels": [{
-        "name": "flash_attn_fwd", "route": "cuda",
-        "source": "vista_slam_tpu_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "vista_slam_tpu/ops/pallas/flash.py:76",
-        "launches": launches, "max_abs_err": k1["max_abs_err"],
-        "ms": k1["ms"], "plain_ms": k1["plain_ms"],
-        "timed_at": f"bf16 {list(K1_TIMED_AT)}"}]}))
+        "name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
+        "replaces": KERNELS[k][2], "launches": sum(by_path[k].values()),
+        "launches_by_path": by_path[k], "max_abs_err": timed[k]["max_abs_err"],
+        "ms": timed[k]["ms"], "plain_ms": timed[k]["plain_ms"],
+        "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
+        "library_ms": timed[k]["library_ms"], "timed_at": timed[k]["timed_at"]}
+        for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,8 +1,9 @@
 """Attention in the PyTorch port against the JAX package's Pallas flash
-kernel (run in interpret mode on the CPU, as tests/test_flash.py runs it).
+kernels, forward and backward (run in interpret mode on the CPU, as
+tests/test_flash.py runs them).
 
-The port's CPU tensors go through the plain versions; the CUDA kernel
-itself is checked by the ``cuda``-marked test (and by chip_smoke.py)."""
+The port's CPU tensors go through the plain versions; the CUDA kernels
+themselves are checked by the ``cuda``-marked tests (and by chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,15 @@ import torch
 
 from vista_slam_tpu_torch.kernels import flash_attn
 from vista_slam_tpu_torch.ops import attention
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tests run many small torch ops: one intra-op thread keeps them
+    from oversubscribing the CPU when test files run in parallel processes."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _qkv(rng, b, h, nq, nk, d=64):
@@ -44,6 +54,70 @@ def test_attention_matches_jax_flash(b, h, nq, nk):
     _assert_close(lse, want_lse, 2e-5)
     _assert_close(attention.mha_plain(tq, tk, tv, scale), want_out, 2e-5)
     assert flash_attn.LAUNCHES == 0  # no kernel launch for CPU tensors
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,nq,nk", [(1, 2, 197, 197), (1, 2, 130, 260)],
+                         ids=["ragged", "nq_ne_nk"])
+def test_flash_backward_matches_jax_vjp(b, h, nq, nk, dtype):
+    """dq, dk, dv of the port's FlashAttention (the plain K2a/K2b on the
+    CPU) against jax.vjp of the JAX package's flash_attention. Normwise
+    tolerance (max abs error over the largest magnitude): 1e-5 in fp32;
+    2e-2 in bf16, where both sides round P and dS to bf16 and a value on a
+    rounding boundary can land one bf16 ulp apart."""
+    import jax
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vista_slam_tpu.ops.pallas import flash
+
+    rng = np.random.default_rng(nq + nk + len(dtype))
+    q, k, v = _qkv(rng, b, h, nq, nk)
+    do = rng.standard_normal(q.shape).astype(np.float32)
+    scale = 64 ** -0.5
+    jdt = jnp.dtype(dtype)
+    with pltpu.force_tpu_interpret_mode():
+        _, vjp = jax.vjp(lambda q_, k_, v_: flash.flash_attention(q_, k_, v_, scale),
+                         *(jnp.asarray(x, jdt) for x in (q, k, v)))
+        want = [np.asarray(g.astype(jnp.float32)) for g in vjp(jnp.asarray(do, jdt))]
+
+    tdt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_() for x in (q, k, v))
+    out = attention.FlashAttention.apply(tq, tk, tv, scale)
+    out.backward(torch.from_numpy(do).to(tdt))
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for name, t, w in zip(("dq", "dk", "dv"), (tq, tk, tv), want):
+        got = t.grad.float().numpy()
+        assert t.grad.dtype == tdt
+        _assert_close(got, w, tol * np.abs(w).max())
+    assert flash_attn.LAUNCHES_DQ == flash_attn.LAUNCHES_DKV == 0
+
+
+def test_flash_autograd_gradcheck():
+    """torch.autograd.gradcheck of FlashAttention in float64 (the plain
+    forward and backward keep float64 throughout and take any head dim on
+    the CPU), Nq != Nk."""
+    gen = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(s, generator=gen, dtype=torch.float64, requires_grad=True)
+               for s in ((1, 2, 3, 16), (1, 2, 4, 16), (1, 2, 4, 16)))
+    assert torch.autograd.gradcheck(
+        lambda q_, k_, v_: attention.FlashAttention.apply(q_, k_, v_, 0.125), (q, k, v))
+
+
+def test_mha_flash_path_is_differentiable_and_counts_once():
+    """With grad on, mha(use_flash=True) goes through FlashAttention: one
+    flash call counted, gradients equal to the plain path's."""
+    rng = np.random.default_rng(3)
+    q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(rng, 1, 2, 40, 40))
+    before = attention.CALLS["flash"]
+    attention.mha(q, k, v, 0.125, use_flash=True).square().sum().backward()
+    assert attention.CALLS["flash"] == before + 1
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    attention.mha(q, k, v, 0.125, use_flash=False).square().sum().backward()
+    for g, t in zip(got, (q, k, v)):
+        _assert_close(g, t.grad.numpy(), 1e-5)
 
 
 def test_mha_dispatch_counts_paths():
@@ -88,3 +162,25 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol):
         ref_out, ref_lse = flash_attn.flash_attention_plain(q, k, v, 0.125)
         _assert_close(out.float().cpu(), ref_out.float().cpu().numpy(), tol)
         _assert_close(lse.cpu(), ref_lse.cpu().numpy(), 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def test_flash_backward_kernels_match_plain_on_card(cuda_device, dtype, tol):
+    """K2a/K2b against their plain versions, normwise."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    for (b, h, nq, nk) in [(12, 12, 769, 769), (2, 3, 130, 260)]:
+        q, k, v, do = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+                       for s in ((b, h, nq, 64), (b, h, nk, 64), (b, h, nk, 64),
+                                 (b, h, nq, 64)))
+        out, lse = flash_attn.flash_attention(q, k, v, 0.125)
+        delta = (do.float() * out.float()).sum(-1).reshape(b * h, nq)
+        launches = (flash_attn.LAUNCHES_DQ, flash_attn.LAUNCHES_DKV)
+        got = flash_attn.flash_attention_bwd(q, k, v, do, lse, delta, 0.125)
+        torch.cuda.synchronize()
+        assert (flash_attn.LAUNCHES_DQ, flash_attn.LAUNCHES_DKV) == (
+            launches[0] + 1, launches[1] + 1)
+        want = flash_attn.flash_attention_bwd_plain(q, k, v, do, lse, delta, 0.125)
+        for g, w in zip(got, want):
+            w = w.float().cpu().numpy()
+            _assert_close(g.float().cpu(), w, tol * np.abs(w).max())

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from vista_slam_tpu_torch.utils.synthetic_scene import BoxScene, orbit_trajectory
+from vista_slam_tpu_torch.datasets.synthetic_scene import BoxScene, orbit_trajectory
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(img_size=[64, 64], enc_dim=64, enc_depth=1, enc_heads=1, dec_dim=64,
@@ -99,13 +99,14 @@ def test_pointmap_store_matches_jax():
 
 
 def test_port_runs_without_jax_yaml_pil_or_opencv():
-    """The port's slice in a fresh interpreter where yaml, PIL and cv2 cannot
-    be imported (as on the GPU machine); afterwards jax is not loaded."""
+    """The port's slice in a fresh interpreter where yaml, PIL, cv2, jax and
+    the JAX package cannot be imported (as on the GPU machine)."""
     script = textwrap.dedent(f"""
         import importlib.abc, sys
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("yaml", "PIL", "cv2"):
+                if name.split(".")[0] in ("yaml", "PIL", "cv2", "jax",
+                                          "jaxlib", "vista_slam_tpu"):
                     raise ModuleNotFoundError(name)
         sys.meta_path.insert(0, Block())
         sys.path.insert(0, {REPO!r}); sys.path.insert(0, {os.path.dirname(__file__)!r})
@@ -119,6 +120,8 @@ def test_port_runs_without_jax_yaml_pil_or_opencv():
         run_sequence(slam, frames(), cfg, progress=False)
         assert slam.view_num == 5 and np.isfinite(trajectory(slam)).all()
         assert "jax" not in sys.modules, "the port imported jax"
+        assert not any(m == "vista_slam_tpu" or m.startswith("vista_slam_tpu.")
+                       for m in sys.modules), "the port imported the JAX package"
         print("NO_JAX_OK")
     """)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -126,6 +129,62 @@ def test_port_runs_without_jax_yaml_pil_or_opencv():
                           text=True, timeout=300, env=env)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+def _imported_roots(path):
+    """Top-level package names of every import statement in a source file
+    (at any depth: module level, functions, try blocks)."""
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(open(path).read(), filename=path)):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_sources_import_no_jax_or_jax_package():
+    """No file of the port, and not chip_smoke.py, imports jax or the JAX
+    package ``vista_slam_tpu`` (relative imports stay inside the port)."""
+    pkg = os.path.join(REPO, "vista_slam_tpu_torch")
+    files = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(d, f) for d, _, fs in os.walk(pkg) for f in fs if f.endswith(".py")]
+    assert len(files) > 30
+    bad = {os.path.relpath(f, REPO): sorted(r & {"jax", "jaxlib", "vista_slam_tpu"})
+           for f in files for r in [_imported_roots(f)]
+           if r & {"jax", "jaxlib", "vista_slam_tpu"}}
+    assert not bad, bad
+
+
+def test_bow_builds_at_first_use_and_matches_jax(monkeypatch):
+    """The port's BoW vocabulary: importing it builds nothing; its C++
+    helper (built with g++ at first use) and its numpy path give the JAX
+    package's words and scores on a vocabulary trained from seeded
+    descriptors (words exact, scores within 1e-6)."""
+    code = ("import vista_slam_tpu_torch.native.bow as b, "
+            "vista_slam_tpu_torch.native.bow_native as n; "
+            "assert b._NATIVE is None and n._lib is None")
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+    from vista_slam_tpu.native import bow as jbow
+    from vista_slam_tpu_torch.native import bow
+
+    rng = np.random.default_rng(0)
+    desc = rng.integers(0, 256, (300, 32), dtype=np.uint8)
+    image_ids = rng.integers(0, 6, 300)
+    vocab = bow.train_vocabulary(desc, k=4, levels=3, image_ids=image_ids)
+    jvocab = jbow.train_vocabulary(desc, k=4, levels=3, image_ids=image_ids)
+    queries = [rng.integers(0, 256, (40, 32), dtype=np.uint8) for _ in range(2)]
+    jwords = [jvocab.descend(q) for q in queries]
+    jvecs = [jvocab.transform(q) for q in queries]
+    for native in (True, False):
+        monkeypatch.setattr(bow, "_NATIVE", native)
+        for q, w in zip(queries, jwords):
+            np.testing.assert_array_equal(vocab.descend(q), w)
+        a, b = (vocab.transform(q) for q in queries)
+        assert vocab.score(a, b) == pytest.approx(jvocab.score(*jvecs), abs=1e-6)
 
 
 def test_cli_main_end_to_end(tmp_path):

@@ -2,9 +2,10 @@
 Hopper (H100).
 
 The JAX package ``vista_slam_tpu`` beside it is the reference; this package
-imports torch and never jax. Its numpy-only host modules (pose graph, host
-Sim(3) math, loop detector, synthetic scene, logging) are imported from the
-JAX package rather than copied.
+imports torch and never jax, and nothing of the JAX package: its numpy-only
+host modules (pose graph, host Sim(3) math, flow tracker, loop detector and
+BoW vocabulary, synthetic scene, logging) are copies kept under the same
+module names.
 
 Layout:
   ops/      RoPE2D, attention dispatch, small linear algebra, Sim(3).
@@ -14,7 +15,10 @@ Layout:
   models/   The STA frontend as nn.Modules (reference state-dict layout)
             and JAX-param -> state-dict conversion.
   slam/     Frontend engine, device pointmap store, dense Sim(3) PGO,
-            OnlineSLAM without jax.
+            OnlineSLAM without jax, host pose graph and loop detection.
+  native/   The BoW vocabulary with its g++-built C++ helper.
+  train/    Losses, the fused bf16-moment AdamW, the train step, the loader.
+  datasets/ Synthetic box scene, images-only sequences, batch sampler.
   cli/      build_slam / run_sequence / main of the offline entry point.
-  utils/    Image resampling, camera geometry, config.
+  utils/    Image resampling, camera geometry, config, logging.
 """

@@ -8,10 +8,9 @@ import os
 import numpy as np
 import torch
 
-from vista_slam_tpu.utils.logging import Channel, log
-
 from ..models.sta import STA, STAConfig
 from ..utils.config import Config
+from ..utils.logging import Channel, log
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -36,9 +35,7 @@ def build_frontend(cfg: Config):
     mcfg = model_config(cfg)
     model = STA(mcfg).to(device)
     if cfg.get("sta_weights") and os.path.exists(cfg.sta_weights):
-        from vista_slam_tpu.models.convert import load_params_npz
-
-        from ..models.convert import state_dict_from_jax
+        from ..models.convert import load_params_npz, state_dict_from_jax
 
         log(f"loading converted weights from {cfg.sta_weights}")
         model.load_state_dict(state_dict_from_jax(load_params_npz(cfg.sta_weights)))
@@ -64,8 +61,8 @@ def build_loop_detector(cfg: Config):
     if not path or not os.path.exists(path):
         log("no BoW vocabulary configured — loop closure disabled", Channel.WARNING)
         return None
-    from vista_slam_tpu.native.bow import Vocabulary
-    from vista_slam_tpu.slam.loop_detector import LoopDetector
+    from ..native.bow import Vocabulary
+    from ..slam.loop_detector import LoopDetector
 
     vocab = Vocabulary()
     vocab.load(path)

@@ -21,8 +21,7 @@ import time
 
 import numpy as np
 
-from vista_slam_tpu.utils.logging import Channel, log
-
+from ..utils.logging import Channel, log
 from .common import build_slam, select_stride_indices
 
 PREFETCH_CHUNK = 8  # keyframes batch-encoded ahead in stride mode
@@ -74,7 +73,7 @@ def run_sequence(slam, dataset, cfg, progress: bool = True) -> float:
                  "enc_feat": feat}
         is_optimized = slam.step(value, force_pgo=(t == n - 1))
         if cfg.get("rerun_vis") or cfg.get("rerun_save"):
-            from vista_slam_tpu.utils import rerun_vis
+            from ..utils import rerun_vis
 
             rerun_vis.set_time(t)
             rerun_vis.log_slam_views(slam, show_all=is_optimized)
@@ -129,9 +128,8 @@ def main(argv=None):
 
     import torch
 
-    from vista_slam_tpu.datasets.slam_sequences import SLAMImagesOnly
-    from vista_slam_tpu.utils import rerun_vis
-
+    from ..datasets.slam_sequences import SLAMImagesOnly
+    from ..utils import rerun_vis
     from ..utils.config import load_config
 
     # full fp32 in fp32 matmuls and convolutions (the heads' numerics)

@@ -47,25 +47,47 @@ class BuiltLibrary:
         self.log = log          # nvcc/ptxas output (registers, spills)
 
 
-def build(source: str) -> BuiltLibrary:
-    """Compile ``csrc/<source>`` (if its build is missing) and load it."""
+def _paths(source: str) -> tuple[Path, Path, Path]:
     src = CSRC_DIR / source
     digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     stem = f"lib{src.stem}_{digest.hexdigest()[:12]}"
-    out = BUILD_DIR / f"{stem}.so"
-    log_path = BUILD_DIR / f"{stem}.log"
-    seconds = 0.0
-    if not out.exists():
+    return src, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
+
+
+def build_many(sources) -> dict[str, float]:
+    """Compile every missing ``csrc/<source>`` with one nvcc each, all
+    started together; returns the seconds each compile took (0.0 for a
+    build that already existed). Raises if any compile fails."""
+    started = {}
+    for source in sources:
+        src, out, log_path = _paths(source)
+        if out.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.so"
-        t0 = time.perf_counter()
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        log_path.write_text(proc.stdout + proc.stderr)
+        tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}.tmp.so"
+        proc = subprocess.Popen([find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        started[source] = (proc, tmp, time.perf_counter())
+    seconds = dict.fromkeys(sources, 0.0)
+    failed = []
+    for source, (proc, tmp, t0) in started.items():
+        output, _ = proc.communicate()
+        seconds[source] = time.perf_counter() - t0
+        src, out, log_path = _paths(source)
+        log_path.write_text(output)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+            failed.append(f"nvcc failed on {src} (exit {proc.returncode}):\n{output}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return seconds
+
+
+def build(source: str) -> BuiltLibrary:
+    """Compile ``csrc/<source>`` (if its build is missing) and load it."""
+    seconds = build_many([source])[source]
+    _, out, log_path = _paths(source)
     log = log_path.read_text() if log_path.exists() else ""
     return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)

@@ -1,10 +1,11 @@
 """JAX parameter tree -> the port's torch state dict.
 
 The inverse of vista_slam_tpu/models/convert.py::convert_state_dict: the
-input is the ``{'params': ...}`` numpy tree that ``load_params_npz``
-returns (or a JAX-initialised tree after ``jax.device_get``), the output a
-state dict in the reference's key layout, which is the port's
-``STA.state_dict()`` layout.
+input is the ``{'params': ...}`` numpy tree that ``load_params_npz`` (a
+copy of the JAX package's, reading its flat ``.npz`` format) returns (or a
+JAX-initialised tree after ``jax.device_get``), the output a state dict in
+the reference's key layout, which is the port's ``STA.state_dict()``
+layout.
 
 Layout transforms (inverse of convert_state_dict):
   Dense kernel [in, out]          -> Linear weight [out, in]
@@ -20,6 +21,24 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+
+def unflatten_params(flat: Mapping[str, np.ndarray]) -> dict:
+    """``{'a/b/c': leaf}`` -> nested ``{'a': {'b': {'c': leaf}}}``."""
+    tree: dict = {}
+    for key, v in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_params_npz(path: str) -> dict:
+    """A parameter tree saved by the JAX package's ``save_params_npz``."""
+    z = np.load(path)
+    return unflatten_params({k: z[k] for k in z.files})
 
 
 def _t(x) -> torch.Tensor:
@@ -119,3 +138,24 @@ def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     _linear(sd, "head_pose_s.fc_rot", hp["fc_rot"])
     _linear(sd, "head_pose_s.fc_conf.0", hp["fc_conf"])
     return sd
+
+
+def jax_param_ndims(model: torch.nn.Module) -> dict[str, int]:
+    """The rank of each parameter's counterpart in the JAX package's layout
+    (the transforms listed above): Linear weight -> 2-D Dense kernel,
+    Conv2d weight -> 4-D HWIO kernel, ConvTranspose2d weight -> 2-D
+    StridedUpsample dense kernel, biases and LayerNorm scales -> 1-D, and
+    any parameter held directly (the pose token, [1, 1, D] in both) -> its
+    own rank. The JAX package decays exactly the leaves with rank > 1."""
+    layout = {torch.nn.Linear: 2, torch.nn.Conv2d: 4, torch.nn.ConvTranspose2d: 2,
+              torch.nn.LayerNorm: 1}
+    ndims = {}
+    for mod_name, mod in model.named_modules():
+        kernel_rank = next((r for t, r in layout.items() if isinstance(mod, t)), None)
+        for name, p in mod.named_parameters(recurse=False):
+            full = f"{mod_name}.{name}" if mod_name else name
+            if kernel_rank is None:
+                ndims[full] = p.dim()
+            else:
+                ndims[full] = kernel_rank if name == "weight" else 1
+    return ndims

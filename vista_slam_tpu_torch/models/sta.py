@@ -9,8 +9,11 @@ vista_slam/sta_model/sta_model.py:26-291):
   * DPT pointmap head over hooks [enc, dec mid, dec mid, dec final] and a
     pose head over the final pose token.
 Mixed precision as in the JAX package: trunk matmuls in ``compute_dtype``
-(bf16 by default, weights held in it), LayerNorm and softmax in fp32, heads
-in fp32. Parameter names are the reference's torch state-dict keys.
+(bf16 by default), LayerNorm and softmax in fp32, heads in fp32. Trunk
+weights are held in ``param_dtype`` (by default the compute dtype, for
+inference; fp32 for training, cast to the compute dtype in every matmul as
+the JAX package's Dense layers cast its fp32 params). Parameter names are
+the reference's torch state-dict keys.
 Images are NHWC in [-1, 1].
 """
 
@@ -44,6 +47,8 @@ class STAConfig:
     use_flash: bool | None = None  # None = by sequence length (ops/attention.mha)
     # tanh-approximate GELU instead of the reference's exact erf GELU
     gelu_approx: bool = False
+    # dtype the trunk weights are held in; None = compute_dtype
+    param_dtype: torch.dtype | None = None
 
     @property
     def grid(self) -> tuple[int, int]:
@@ -73,11 +78,24 @@ class LayerNorm32(nn.LayerNorm):
                             self.bias, self.eps)
 
 
+class Linear(nn.Linear):
+    """nn.Linear computing in ``dtype`` whatever dtype its weights are held
+    in (``param_dtype``): input, weight and bias are cast to ``dtype``."""
+
+    def __init__(self, din, dout, dtype, param_dtype=None):
+        super().__init__(din, dout, dtype=param_dtype or dtype)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
 class Mlp(nn.Module):
-    def __init__(self, dim, hidden, dtype, gelu_approx=False):
+    def __init__(self, dim, hidden, dtype, gelu_approx=False, param_dtype=None):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden, dtype=dtype)
-        self.fc2 = nn.Linear(hidden, dim, dtype=dtype)
+        self.fc1 = Linear(dim, hidden, dtype, param_dtype)
+        self.fc2 = Linear(hidden, dim, dtype, param_dtype)
         self.approximate = "tanh" if gelu_approx else "none"
 
     def forward(self, x):
@@ -85,12 +103,12 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim, heads, dtype, use_flash):
+    def __init__(self, dim, heads, dtype, use_flash, param_dtype=None):
         super().__init__()
         self.heads = heads
         self.use_flash = use_flash
-        self.qkv = nn.Linear(dim, 3 * dim, dtype=dtype)
-        self.proj = nn.Linear(dim, dim, dtype=dtype)
+        self.qkv = Linear(dim, 3 * dim, dtype, param_dtype)
+        self.proj = Linear(dim, dim, dtype, param_dtype)
 
     def forward(self, x, rope):
         B, N, C = x.shape
@@ -102,14 +120,14 @@ class Attention(nn.Module):
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, dim, heads, dtype, use_flash):
+    def __init__(self, dim, heads, dtype, use_flash, param_dtype=None):
         super().__init__()
         self.heads = heads
         self.use_flash = use_flash
-        self.projq = nn.Linear(dim, dim, dtype=dtype)
-        self.projk = nn.Linear(dim, dim, dtype=dtype)
-        self.projv = nn.Linear(dim, dim, dtype=dtype)
-        self.proj = nn.Linear(dim, dim, dtype=dtype)
+        self.projq = Linear(dim, dim, dtype, param_dtype)
+        self.projk = Linear(dim, dim, dtype, param_dtype)
+        self.projv = Linear(dim, dim, dtype, param_dtype)
+        self.proj = Linear(dim, dim, dtype, param_dtype)
 
     def forward(self, x, y, rope_q, rope_k):
         B, Nq, C = x.shape
@@ -124,13 +142,14 @@ class CrossAttention(nn.Module):
 
 
 class EncoderBlock(nn.Module):
-    def __init__(self, dim, heads, mlp_ratio, dtype, use_flash, gelu_approx):
+    def __init__(self, dim, heads, mlp_ratio, dtype, use_flash, gelu_approx,
+                 param_dtype=None):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm32(dim)
-        self.attn = Attention(dim, heads, dtype, use_flash)
+        self.attn = Attention(dim, heads, dtype, use_flash, param_dtype)
         self.norm2 = LayerNorm32(dim)
-        self.mlp = Mlp(dim, dim * mlp_ratio, dtype, gelu_approx)
+        self.mlp = Mlp(dim, dim * mlp_ratio, dtype, gelu_approx, param_dtype)
 
     def forward(self, x, rope):
         x = x + self.attn(self.norm1(x).to(self.dtype), rope)
@@ -141,16 +160,17 @@ class DecoderBlock(nn.Module):
     """Self-attention, cross-attention on the layernormed other stream, MLP;
     pre-LN (reference: blocks/sta_blocks.py:210-231)."""
 
-    def __init__(self, dim, heads, mlp_ratio, dtype, use_flash, gelu_approx):
+    def __init__(self, dim, heads, mlp_ratio, dtype, use_flash, gelu_approx,
+                 param_dtype=None):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm32(dim)
-        self.attn = Attention(dim, heads, dtype, use_flash)
+        self.attn = Attention(dim, heads, dtype, use_flash, param_dtype)
         self.norm_y = LayerNorm32(dim)
         self.norm2 = LayerNorm32(dim)
-        self.cross_attn = CrossAttention(dim, heads, dtype, use_flash)
+        self.cross_attn = CrossAttention(dim, heads, dtype, use_flash, param_dtype)
         self.norm3 = LayerNorm32(dim)
-        self.mlp = Mlp(dim, dim * mlp_ratio, dtype, gelu_approx)
+        self.mlp = Mlp(dim, dim * mlp_ratio, dtype, gelu_approx, param_dtype)
 
     def forward(self, x, y, rope):
         dt = self.dtype
@@ -164,10 +184,11 @@ class PatchEmbed(nn.Module):
     space-to-depth + one matmul in the compute dtype (the same contraction;
     the weight keeps the conv layout [D, 3, P, P])."""
 
-    def __init__(self, dim, patch, dtype):
+    def __init__(self, dim, patch, dtype, param_dtype=None):
         super().__init__()
         self.patch = patch
-        self.proj = nn.Conv2d(3, dim, patch, patch, dtype=dtype)
+        self.dtype = dtype
+        self.proj = nn.Conv2d(3, dim, patch, patch, dtype=param_dtype or dtype)
 
     def forward(self, img):  # [B, H, W, C] -> [B, gh, gw, D]
         p = self.patch
@@ -175,7 +196,8 @@ class PatchEmbed(nn.Module):
         x = img.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
         x = x.reshape(b, h // p, w // p, p * p * c)
         wt = self.proj.weight.permute(0, 2, 3, 1).reshape(self.proj.out_channels, -1)
-        return F.linear(x.to(wt.dtype), wt, self.proj.bias)
+        dt = self.dtype
+        return F.linear(x.to(dt), wt.to(dt), self.proj.bias.to(dt))
 
 
 class STA(nn.Module):
@@ -186,20 +208,21 @@ class STA(nn.Module):
       pair_heads(f1, f2, ...)     -> pointmaps / confidences / poses
       decode_and_heads(f1, f2)    -> both of the above
       forward(img1, img2)         -> full two-view forward
+      train_forward(main, supps)  -> the training forward over S supports
     """
 
     def __init__(self, cfg: STAConfig):
         super().__init__()
         self.cfg = c = cfg
-        dt = c.compute_dtype
-        self.patch_embed = PatchEmbed(c.enc_dim, c.patch_size, dt)
+        dt, pdt = c.compute_dtype, c.param_dtype
+        self.patch_embed = PatchEmbed(c.enc_dim, c.patch_size, dt, pdt)
         self.enc_blocks = nn.ModuleList([
             EncoderBlock(c.enc_dim, c.enc_heads, c.mlp_ratio, dt, c.use_flash,
-                         c.gelu_approx) for _ in range(c.enc_depth)])
-        self.decoder_embed = nn.Linear(c.enc_dim, c.dec_dim, dtype=dt)
+                         c.gelu_approx, pdt) for _ in range(c.enc_depth)])
+        self.decoder_embed = Linear(c.enc_dim, c.dec_dim, dt, pdt)
         self.dec_block = nn.ModuleList([
             DecoderBlock(c.dec_dim, c.dec_heads, c.mlp_ratio, dt, c.use_flash,
-                         c.gelu_approx) for _ in range(c.dec_depth)])
+                         c.gelu_approx, pdt) for _ in range(c.dec_depth)])
         self.dec_norm = LayerNorm32(c.dec_dim)
         self.init_pose_token = nn.Parameter(torch.zeros(1, 1, c.dec_dim))
         self.downstream_head_pts = nn.Module()
@@ -287,3 +310,18 @@ class STA(nn.Module):
         p = self.cfg.patch_size
         grid = (img1.shape[1] // p, img1.shape[2] // p)
         return self.decode_and_heads(self.encode(img1), self.encode(img2), grid)
+
+    def train_forward(self, main_img: torch.Tensor, support_imgs: torch.Tensor) -> dict:
+        """Training forward over one main view and S support views
+        (reference: sta_model.py:247-291), as the JAX package batches it:
+        main_img [B,H,W,3] encoded once, support_imgs [S,B,H,W,3] encoded in
+        one call, the main features tiled S times and all S pair-decodes run
+        as one batch of S*B pairs. Outputs have a leading 2*S*B axis: the
+        first S*B rows are the main view's predictions per support pairing,
+        the last S*B the support views'."""
+        S, B = support_imgs.shape[:2]
+        p = self.cfg.patch_size
+        grid = (main_img.shape[1] // p, main_img.shape[2] // p)
+        f_main = self.encode(main_img)
+        f_supp = self.encode(support_imgs.reshape((S * B,) + tuple(support_imgs.shape[2:])))
+        return self.decode_and_heads(f_main.repeat(S, 1, 1), f_supp, grid)

@@ -46,7 +46,10 @@ def _tables_np(n_h: int, n_w: int, dim_head: int, base: float, n_special: int):
 @functools.lru_cache(maxsize=64)
 def _tables_on(n_h, n_w, dim_head, base, n_special, device: str):
     cos, sin = _tables_np(n_h, n_w, dim_head, base, n_special)
-    return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
+    # cached tensors must not be inference tensors, or a training step after
+    # an inference-mode forward at the same grid could not save them
+    with torch.inference_mode(False):
+        return torch.from_numpy(cos).to(device), torch.from_numpy(sin).to(device)
 
 
 def rope2d_tables(n_h: int, n_w: int, dim_head: int, base: float = 100.0,

@@ -1,0 +1,107 @@
+"""Where the time of the full-width training step goes, on one GPU.
+
+Run from the repository root:
+  python -m vista_slam_tpu_torch.train.profile_step [--steps N] [--table PATH]
+
+Builds the 384x512 fine-tune of train/finetune.py (configs/highres.yaml's
+model, configs/train_fast.yaml's hyper-parameters, bf16_fused AdamW, batch
+2 with 3 supports, random weights), runs two warm-up steps, then traces N
+steps (default 2) with torch.profiler and prints:
+  * device time by kernel family (the port's kernels K1, K2a, K2b, K5;
+    matrix products; convolutions; everything else), summed over the
+    traced steps, with its share of the device time;
+  * the device busy time against the host wall time of the traced steps
+    (the idle share), and the 25 kernels with the most device time.
+With --table, the profiler's full table (200 rows) is written to PATH.
+Needs CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import subprocess
+import sys
+import time
+
+FAMILIES = (  # first match wins, on the lower-cased kernel name
+    ("K1 flash fwd", ("flash_fwd",)),
+    ("K2a flash bwd dq", ("flash_bwd_dq",)),
+    ("K2b flash bwd dkv", ("flash_bwd_dkv",)),
+    ("K5 adamw", ("adamw_bf16",)),
+    # cuDNN's FFT convolutions run complex GEMMs (cf32) between their
+    # transforms; its layout kernels (nchwToNhwc) serve the convolutions too
+    ("convolution", ("conv", "implicit", "winograd", "fft", "dgrad", "wgrad",
+                     "cf32", "nchwtonhwc", "nhwctonchw")),
+    ("matrix product", ("gemm", "xmma", "cutlass", "nvjet", "matmul")),
+)
+
+
+def family(name: str) -> str:
+    low = name.lower()
+    for fam, keys in FAMILIES:
+        if any(k in low for k in keys):
+            return fam
+    return "other (elementwise, norms, reductions, copies)"
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--table", default=None, help="write the full table here")
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("profile_step: needs a CUDA device", file=sys.stderr)
+        return 2
+    from torch.profiler import ProfilerActivity, profile
+
+    from . import finetune
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True, timeout=60).stdout.strip().splitlines()[0]
+    batches = finetune.batches(finetune.MODEL["img_size"], 2 + args.steps)
+    _, _, step_fn = finetune.build("cuda")
+    alpha = finetune.TRAIN["alpha_init"]
+    for b in batches[:2]:
+        step_fn(b, alpha)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[2:]:
+            step_fn(b, alpha)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    # device events (kernels, copies, memsets) with their device intervals
+    kernels = [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
+               if e.device_type.name == "CUDA"]
+    if not kernels:
+        print("profile_step: the trace holds no device events", file=sys.stderr)
+        return 1
+    busy_ms = sum(ms for _, ms in kernels)
+    fams: dict[str, float] = {}
+    for name, ms in kernels:
+        fams[family(name)] = fams.get(family(name), 0.0) + ms
+    n = args.steps
+    print(card)
+    print(f"traced {n} steps: host wall {wall_ms:.2f} ms ({wall_ms / n:.2f} ms/step), "
+          f"device busy {busy_ms:.2f} ms ({busy_ms / n:.2f} ms/step), idle share "
+          f"{1 - busy_ms / wall_ms:.3f} [{card}]")
+    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
+        print(f"  {fam}: {ms / n:.2f} ms/step ({ms / busy_ms:.1%} of device time)")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+    if args.table:
+        os.makedirs(os.path.dirname(os.path.abspath(args.table)), exist_ok=True)
+        with open(args.table, "w") as f:
+            f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=200))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,11 +1,22 @@
-"""Camera intrinsics from pointmaps, as in vista_slam_tpu/utils/geometry.py
-(reference: vista_slam/utils/slam_utils.py:8-61)."""
+"""Camera geometry, as in vista_slam_tpu/utils/geometry.py: intrinsics from
+pointmaps (reference: vista_slam/utils/slam_utils.py:8-61) and the
+closed-form rigid inverse the training losses use."""
 
 from __future__ import annotations
 
 import torch
 
 from .image_ops import pixel_grid
+
+
+def inv_se3(T: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of rigid [..., 4, 4] transforms:
+    inv([R t; 0 1]) = [R^T -R^T t; 0 1]."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    t = -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3])
+    top = torch.cat([Rt, t[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype, device=T.device)
+    return torch.cat([top, bottom.expand(T.shape[:-2] + (1, 4))], dim=-2)
 
 
 def _safe_div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
