@@ -31,3 +31,67 @@ def test_adamw_kernel_matches_plain_on_card():
     adamw.fused_adamw_bf16_plain(*ref[:1], g, *ref[1:], scalars, **hp)
     for a, b in zip(mine, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+def test_fused_attention_kernels_match_plain_on_card(dtype, tol):
+    """K3a and K3b against their plain versions on the card, at the decoder's
+    197 tokens and at the 1024-token cap: out and dq/dk/dv normwise, lse
+    within 1e-3; one launch of each per call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from vista_slam_tpu_torch.kernels import attn_train as at
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for shape in ((4, 12, 197, 64), (1, 2, 1024, 64)):
+        q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        launches = (at.LAUNCHES_FWD, at.LAUNCHES_BWD)
+        out, lse = at.fused_attention_fwd(q, k, v, 0.125)
+        delta = (do.float() * out.float()).sum(-1).reshape(-1, shape[2])
+        got = at.fused_attention_bwd(q, k, v, do, lse, delta, 0.125)
+        torch.cuda.synchronize()
+        assert (at.LAUNCHES_FWD, at.LAUNCHES_BWD) == (launches[0] + 1, launches[1] + 1)
+        ref_out, ref_lse = at.fused_attention_fwd_plain(q, k, v, 0.125)
+        want = at.fused_attention_bwd_plain(q, k, v, do, lse, delta, 0.125)
+        assert (lse - ref_lse).abs().max().item() <= 1e-3
+        for g, w in ((out, ref_out), *zip(got, want)):
+            assert g.dtype == dtype and torch.isfinite(g).all()
+            err = (g.float() - w.float()).abs().max() / w.float().abs().max()
+            assert err.item() <= tol
+
+
+@pytest.mark.cuda
+def test_int8_adamw_kernel_matches_plain_on_card():
+    """K4 against its plain version on the card on a transposed (Linear)
+    JAX-layout view: the kernel divides and rounds where the plain version
+    does, so p and the scales agree exactly and the codes but for a handful
+    one step apart (torch's and the kernel's exp/log)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from vista_slam_tpu_torch.kernels import adamw
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    p = torch.randn((768, 1024), generator=gen, device="cuda")
+    g = torch.randn((768, 1024), generator=gen, device="cuda") * 1e-2
+    C = p.numel() // adamw.QBLOCK
+    state = (torch.randint(-127, 128, (C, 1024), generator=gen, device="cuda",
+                           dtype=torch.int8),
+             torch.rand((C, 1), generator=gen, device="cuda") * 1e-4,
+             torch.randint(0, 128, (C, 1024), generator=gen, device="cuda",
+                           dtype=torch.int8),
+             torch.rand((C, 1), generator=gen, device="cuda") * 1e-3)
+    scalars = torch.tensor([0.7, 1e-3, 0.19, 0.0975], device="cuda")
+    hp = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.05)
+    mine, ref = [t.clone() for t in (p, *state)], [t.clone() for t in (p, *state)]
+    launches = adamw.LAUNCHES_INT8
+    adamw.fused_adamw_int8(mine[0].t(), g.t(), *mine[1:], scalars, **hp)
+    torch.cuda.synchronize()
+    assert adamw.LAUNCHES_INT8 == launches + 1
+    adamw.fused_adamw_int8_plain(ref[0].t(), g.t(), *ref[1:], scalars, **hp)
+    assert torch.equal(mine[0], ref[0])
+    assert torch.equal(mine[2], ref[2]) and torch.equal(mine[4], ref[4])
+    for a, b in ((mine[1], ref[1]), (mine[3], ref[3])):
+        d = (a.int() - b.int()).abs()
+        assert d.max().item() <= 1 and (d > 0).sum().item() <= 1e-4 * d.numel()

@@ -239,7 +239,8 @@ def test_optimizer_steps_match_jax(state_dtype):
     opt = step.make_optimizer(**kw)
     names = list(tree)
     params = [torch.from_numpy(tree[k].copy()).requires_grad_() for k in names]
-    opt.init(params, [tree[k].ndim > 1 for k in names])
+    opt.init(params, [tree[k].ndim > 1 for k in names],
+             [tuple(range(tree[k].ndim)) for k in names])
     for g in grads:
         for k, p in zip(names, params):
             p.grad = torch.from_numpy(g[k])
@@ -391,9 +392,13 @@ def test_train_step_runs_and_moves_params_on_cpu():
     moved = [k for k, v in model.named_parameters() if not torch.equal(before[k], v)]
     assert len(moved) > 100
     assert sum(isinstance(m, FusedBf16Leaf) for m in opt.moments) > 10
-    for knob in (dict(accum_iter=2), dict(state_dtype="int8_fused"), dict(state_dtype="bf16")):
+    for knob in (dict(accum_iter=2), dict(freeze=lambda path: False)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             step.make_optimizer(**knob)
+        with pytest.raises(ValueError, match="does not compose"):
+            step.make_optimizer(state_dtype="int8_fused", **knob)
+    for mode in ("int8_fused", "bf16_fused", "bf16", "int8"):
+        assert step.make_optimizer(state_dtype=mode).state_dtype == mode
 
 
 def test_training_after_an_inference_mode_forward():

@@ -17,7 +17,8 @@ Layout:
   slam/     Frontend engine, device pointmap store, dense Sim(3) PGO,
             OnlineSLAM without jax, host pose graph and loop detection.
   native/   The BoW vocabulary with its g++-built C++ helper.
-  train/    Losses, the fused bf16-moment AdamW, the train step, the loader.
+  train/    Losses, AdamW (fused bf16 and int8 moments, the optax chain and
+            its compressed carriers), the train step, the loader, presets.
   datasets/ Synthetic box scene, images-only sequences, batch sampler.
   cli/      build_slam / run_sequence / main of the offline entry point.
   utils/    Image resampling, camera geometry, config, logging.

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` file has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``vista_slam_tpu_torch/_build/``, then loaded
-with ``ctypes``. The library's file name carries a hash of the source and
-the flags, so an edited source is rebuilt and an unchanged one is reused.
+with ``ctypes``. The library's file name carries a hash of the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source or
+header is rebuilt and an unchanged one is reused.
 Nothing here runs at import time.
 """
 
@@ -49,7 +50,8 @@ class BuiltLibrary:
 
 def _paths(source: str) -> tuple[Path, Path, Path]:
     src = CSRC_DIR / source
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     stem = f"lib{src.stem}_{digest.hexdigest()[:12]}"
     return src, BUILD_DIR / f"{stem}.so", BUILD_DIR / f"{stem}.log"
 

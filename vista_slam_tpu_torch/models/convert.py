@@ -140,22 +140,37 @@ def state_dict_from_jax(params: Mapping) -> dict[str, torch.Tensor]:
     return sd
 
 
-def jax_param_ndims(model: torch.nn.Module) -> dict[str, int]:
-    """The rank of each parameter's counterpart in the JAX package's layout
-    (the transforms listed above): Linear weight -> 2-D Dense kernel,
-    Conv2d weight -> 4-D HWIO kernel, ConvTranspose2d weight -> 2-D
-    StridedUpsample dense kernel, biases and LayerNorm scales -> 1-D, and
-    any parameter held directly (the pose token, [1, 1, D] in both) -> its
-    own rank. The JAX package decays exactly the leaves with rank > 1."""
-    layout = {torch.nn.Linear: 2, torch.nn.Conv2d: 4, torch.nn.ConvTranspose2d: 2,
-              torch.nn.LayerNorm: 1}
-    ndims = {}
+def jax_layouts(model: torch.nn.Module) -> dict[str, tuple[int, ...]]:
+    """For each parameter, the permutation ``perm`` such that
+    ``p.permute(perm)`` flattens, row-major, exactly as its counterpart in
+    the JAX package's layout flattens (``p.reshape(-1)`` there). The
+    inverses of the transforms listed above:
+      Linear weight [out, in]                -> [in, out]            (1, 0)
+      Conv2d weight [out, in, kh, kw]        -> [kh, kw, in, out]    (2, 3, 1, 0)
+      ConvTranspose2d weight [in, out, k, k] -> [in, k, k, out]      (0, 2, 3, 1),
+          the JAX package's [in, k*k*out] dense kernel up to a reshape
+      anything else (biases, LayerNorm, the pose token) -> itself.
+    The strided-upsample bias is the one parameter whose JAX leaf holds
+    more elements (k*k untied copies of it); no layout maps the two."""
+    layout = {torch.nn.Linear: (1, 0), torch.nn.Conv2d: (2, 3, 1, 0),
+              torch.nn.ConvTranspose2d: (0, 2, 3, 1)}
+    perms = {}
     for mod_name, mod in model.named_modules():
-        kernel_rank = next((r for t, r in layout.items() if isinstance(mod, t)), None)
+        perm = next((v for t, v in layout.items() if isinstance(mod, t)), None)
         for name, p in mod.named_parameters(recurse=False):
             full = f"{mod_name}.{name}" if mod_name else name
-            if kernel_rank is None:
-                ndims[full] = p.dim()
-            else:
-                ndims[full] = kernel_rank if name == "weight" else 1
+            perms[full] = perm if perm is not None and name == "weight" else tuple(range(p.dim()))
+    return perms
+
+
+def jax_param_ndims(model: torch.nn.Module) -> dict[str, int]:
+    """The rank of each parameter's counterpart in the JAX package's layout
+    (``jax_layouts``; the ConvTranspose2d weight's is the 2-D dense kernel,
+    biases and LayerNorm scales are 1-D, the pose token is [1, 1, D] in
+    both). The JAX package decays exactly the leaves with rank > 1."""
+    ndims = {}
+    convt = {f"{n}.weight" for n, m in model.named_modules()
+             if isinstance(m, torch.nn.ConvTranspose2d)}
+    for name, perm in jax_layouts(model).items():
+        ndims[name] = 2 if name in convt else len(perm)
     return ndims

@@ -45,6 +45,9 @@ class STAConfig:
     conf_offset: float = 1.0
     compute_dtype: torch.dtype = torch.bfloat16
     use_flash: bool | None = None  # None = by sequence length (ops/attention.mha)
+    # the fused short-sequence training attention (kernels K3a/K3b) for
+    # every attention below the flash threshold with N_q == N_kv <= 1024
+    attn_fused_train: bool = False
     # tanh-approximate GELU instead of the reference's exact erf GELU
     gelu_approx: bool = False
     # dtype the trunk weights are held in; None = compute_dtype
@@ -103,10 +106,11 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    def __init__(self, dim, heads, dtype, use_flash, param_dtype=None):
+    def __init__(self, dim, heads, dtype, use_flash, param_dtype=None, fused_train=False):
         super().__init__()
         self.heads = heads
         self.use_flash = use_flash
+        self.fused_train = fused_train
         self.qkv = Linear(dim, 3 * dim, dtype, param_dtype)
         self.proj = Linear(dim, dim, dtype, param_dtype)
 
@@ -115,15 +119,16 @@ class Attention(nn.Module):
         hd = C // self.heads
         q, k, v = self.qkv(x).reshape(B, N, 3, self.heads, hd).permute(2, 0, 3, 1, 4)
         q, k = apply_rope2d(q, *rope), apply_rope2d(k, *rope)
-        out = mha(q, k, v, hd ** -0.5, self.use_flash)
+        out = mha(q, k, v, hd ** -0.5, self.use_flash, self.fused_train)
         return self.proj(out.transpose(1, 2).reshape(B, N, C))
 
 
 class CrossAttention(nn.Module):
-    def __init__(self, dim, heads, dtype, use_flash, param_dtype=None):
+    def __init__(self, dim, heads, dtype, use_flash, param_dtype=None, fused_train=False):
         super().__init__()
         self.heads = heads
         self.use_flash = use_flash
+        self.fused_train = fused_train
         self.projq = Linear(dim, dim, dtype, param_dtype)
         self.projk = Linear(dim, dim, dtype, param_dtype)
         self.projv = Linear(dim, dim, dtype, param_dtype)
@@ -137,17 +142,17 @@ class CrossAttention(nn.Module):
         k = self.projk(y).reshape(B, Nk, h, hd).transpose(1, 2)
         v = self.projv(y).reshape(B, Nk, h, hd).transpose(1, 2)
         q, k = apply_rope2d(q, *rope_q), apply_rope2d(k, *rope_k)
-        out = mha(q, k, v, hd ** -0.5, self.use_flash)
+        out = mha(q, k, v, hd ** -0.5, self.use_flash, self.fused_train)
         return self.proj(out.transpose(1, 2).reshape(B, Nq, C))
 
 
 class EncoderBlock(nn.Module):
     def __init__(self, dim, heads, mlp_ratio, dtype, use_flash, gelu_approx,
-                 param_dtype=None):
+                 param_dtype=None, fused_train=False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm32(dim)
-        self.attn = Attention(dim, heads, dtype, use_flash, param_dtype)
+        self.attn = Attention(dim, heads, dtype, use_flash, param_dtype, fused_train)
         self.norm2 = LayerNorm32(dim)
         self.mlp = Mlp(dim, dim * mlp_ratio, dtype, gelu_approx, param_dtype)
 
@@ -161,14 +166,15 @@ class DecoderBlock(nn.Module):
     pre-LN (reference: blocks/sta_blocks.py:210-231)."""
 
     def __init__(self, dim, heads, mlp_ratio, dtype, use_flash, gelu_approx,
-                 param_dtype=None):
+                 param_dtype=None, fused_train=False):
         super().__init__()
         self.dtype = dtype
         self.norm1 = LayerNorm32(dim)
-        self.attn = Attention(dim, heads, dtype, use_flash, param_dtype)
+        self.attn = Attention(dim, heads, dtype, use_flash, param_dtype, fused_train)
         self.norm_y = LayerNorm32(dim)
         self.norm2 = LayerNorm32(dim)
-        self.cross_attn = CrossAttention(dim, heads, dtype, use_flash, param_dtype)
+        self.cross_attn = CrossAttention(dim, heads, dtype, use_flash, param_dtype,
+                                         fused_train)
         self.norm3 = LayerNorm32(dim)
         self.mlp = Mlp(dim, dim * mlp_ratio, dtype, gelu_approx, param_dtype)
 
@@ -218,11 +224,13 @@ class STA(nn.Module):
         self.patch_embed = PatchEmbed(c.enc_dim, c.patch_size, dt, pdt)
         self.enc_blocks = nn.ModuleList([
             EncoderBlock(c.enc_dim, c.enc_heads, c.mlp_ratio, dt, c.use_flash,
-                         c.gelu_approx, pdt) for _ in range(c.enc_depth)])
+                         c.gelu_approx, pdt, c.attn_fused_train)
+            for _ in range(c.enc_depth)])
         self.decoder_embed = Linear(c.enc_dim, c.dec_dim, dt, pdt)
         self.dec_block = nn.ModuleList([
             DecoderBlock(c.dec_dim, c.dec_heads, c.mlp_ratio, dt, c.use_flash,
-                         c.gelu_approx, pdt) for _ in range(c.dec_depth)])
+                         c.gelu_approx, pdt, c.attn_fused_train)
+            for _ in range(c.dec_depth)])
         self.dec_norm = LayerNorm32(c.dec_dim)
         self.init_pose_token = nn.Parameter(torch.zeros(1, 1, c.dec_dim))
         self.downstream_head_pts = nn.Module()

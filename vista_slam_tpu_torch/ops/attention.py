@@ -12,6 +12,12 @@ in vista_slam_tpu/ops/attention.py.
     computes delta = rowsum(dO * O) in fp32 and runs K2a (dq) and K2b
     (dk, dv) (kernels/flash_attn.py). CUDA tensors go to the kernels, CPU
     tensors to their plain versions.
+  * ``fused_train=True``: ``FusedTrainAttention``, the counterpart of the
+    JAX package's ``fused_attention`` (ops/pallas/attn_train.py), for
+    N_q == N_kv <= ``MAX_FUSED_TOKENS`` below the flash threshold: the
+    forward is kernel K3a (saving q, k, v, out and lse), the backward
+    computes delta in fp32 and runs K3b, which emits dq, dk and dv in one
+    kernel (kernels/attn_train.py).
 
 ``CALLS`` counts which path each call took, so a run can show that the
 attention went where the configuration says.
@@ -21,9 +27,10 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels import flash_attn
+from ..kernels import attn_train, flash_attn
 
-CALLS = {"flash": 0, "plain": 0}
+CALLS = {"flash": 0, "plain": 0, "fused": 0}
+MAX_FUSED_TOKENS = attn_train.MAX_FUSED_TOKENS
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -47,22 +54,67 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        B, H, Nq, _ = q.shape
         do = do.contiguous()
-        acc = torch.float64 if do.dtype == torch.float64 else torch.float32
-        delta = (do.to(acc) * out.to(acc)).sum(-1).reshape(B * H, Nq)
+        delta = _delta(do, out)
         dq, dk, dv = flash_attn.flash_attention_bwd(q, k, v, do, lse, delta, ctx.scale)
         return dq, dk, dv, None
 
 
+def _delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in fp32 (fp64 for fp64 inputs), [B*H, N]."""
+    B, H, N, _ = out.shape
+    acc = torch.float64 if do.dtype == torch.float64 else torch.float32
+    return (do.to(acc) * out.to(acc)).sum(-1).reshape(B * H, N)
+
+
+class FusedTrainAttention(torch.autograd.Function):
+    """out = softmax(q k^T * scale) v through K3a, with the one-kernel K3b
+    backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        out, lse = attn_train.fused_attention_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale = scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        dq, dk, dv = attn_train.fused_attention_bwd(q, k, v, do, lse, _delta(do, out),
+                                                    ctx.scale)
+        return dq, dk, dv, None
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """q/k/v [B, H, N, D] -> [B, H, N, D] through K3a/K3b; N_q == N_kv
+    <= MAX_FUSED_TOKENS, as the JAX package's ``fused_attention`` demands."""
+    if q.shape[-2] != k.shape[-2]:
+        raise ValueError("fused_attention expects N_q == N_kv; use "
+                         "flash_attention for asymmetric lengths")
+    if q.shape[-2] > MAX_FUSED_TOKENS:
+        raise ValueError(f"fused_attention is capped at {MAX_FUSED_TOKENS} tokens "
+                         f"(got {q.shape[-2]}); use flash_attention for long sequences")
+    return FusedTrainAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                     float(scale))
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-        use_flash: bool | None = None) -> torch.Tensor:
-    """``use_flash=None`` keeps the JAX package's rule (flash from 512
-    query tokens on); where the card's crossover lies is not measured yet."""
+        use_flash: bool | None = None, fused_train: bool = False) -> torch.Tensor:
+    """The JAX package's dispatch order: ``use_flash`` (None = the JAX
+    package's rule, flash from 512 query tokens on; where the card's
+    crossover lies is not measured yet) wins; then, with ``fused_train``,
+    the fused kernels for N_q == N_kv <= MAX_FUSED_TOKENS; else plain."""
+    n = q.shape[-2]
     if use_flash is None:
-        use_flash = q.shape[-2] >= 512
+        use_flash = n >= 512
     if use_flash:
         CALLS["flash"] += 1
         return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), scale)
+    if fused_train and n == k.shape[-2] and n <= MAX_FUSED_TOKENS:
+        CALLS["fused"] += 1
+        return fused_attention(q, k, v, scale)
     CALLS["plain"] += 1
     return mha_plain(q, k, v, scale)

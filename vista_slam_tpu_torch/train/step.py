@@ -6,9 +6,10 @@ parameters) -> loss -> ``backward()`` -> global-norm clip + AdamW, as a
 plain eager function on tensors. The optimizer follows the JAX package's
 ``make_optimizer``: AdamW(0.9, 0.95) with a per-iteration warm-up + cosine
 schedule, weight decay on parameters whose JAX-layout rank is above 1, and
-moments in fp32 (``state_dtype="fp32"``) or in bf16 through kernel K5
-(``"bf16_fused"``). Gradient accumulation, freezing, the bf16/int8 XLA
-carriers and the int8 kernel are not ported yet (ROADMAP.md, Queue 1).
+moments in fp32 (``state_dtype="fp32"``), in bf16 through kernel K5
+(``"bf16_fused"``), in int8 through kernel K4 (``"int8_fused"``), or
+carried compressed between plain-PyTorch steps (``"bf16"``, ``"int8"``).
+Gradient accumulation and freezing are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -18,10 +19,10 @@ import math
 import numpy as np
 import torch
 
-from ..models.convert import jax_param_ndims
+from ..models.convert import jax_layouts, jax_param_ndims
 from ..models.sta import STA
 from .losses import sta_criterion
-from .quantized_opt import FusedAdamW, Fp32AdamW
+from .quantized_opt import ChainAdamW, FusedAdamW
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -54,19 +55,23 @@ def make_optimizer(lr: float = 1e-4, warmup_steps: int = 1000,
                    accum_iter: int = 1, freeze=None, state_dtype: str = "fp32"):
     """AdamW(0.9, 0.95) + per-iteration cosine schedule with warm-up +
     global-norm clip (reference: train.py:403-404, croco_misc.py:454-469,
-    clip at train.py:293). Bind it to parameters with ``init``."""
+    clip at train.py:293). ``state_dtype``: fp32, bf16_fused, int8_fused,
+    bf16 or int8 (train/quantized_opt.py). Bind it to parameters with
+    ``init``."""
     if accum_iter > 1 or freeze is not None:
+        if state_dtype.endswith("_fused"):
+            raise ValueError("the fused optimizer kernel does not compose "
+                             "with accum_iter/freeze; use state_dtype="
+                             "'int8'/'bf16' (XLA carriers) for those")
         raise NotImplementedError("accum_iter / freeze are not ported yet: "
                                   "see ROADMAP.md, Queue 1")
     warmup_steps = min(warmup_steps, max(total_steps // 10, 1))
     schedule = warmup_cosine_decay_schedule(0.0, lr, warmup_steps, total_steps, min_lr)
-    if state_dtype == "bf16_fused":
-        return FusedAdamW(schedule, 0.9, 0.95, 1e-8, weight_decay, clip)
-    if state_dtype == "fp32":
-        return Fp32AdamW(schedule, 0.9, 0.95, 1e-8, weight_decay, clip)
-    if state_dtype in ("bf16", "int8", "int8_fused"):
-        raise NotImplementedError(f"state_dtype {state_dtype!r} is not ported yet: "
-                                  "see ROADMAP.md, Queue 1")
+    hp = (schedule, 0.9, 0.95, 1e-8, weight_decay, clip)
+    if state_dtype in ("bf16_fused", "int8_fused"):
+        return FusedAdamW(*hp, state_dtype=state_dtype)
+    if state_dtype in ("fp32", "bf16", "int8"):
+        return ChainAdamW(*hp, state_dtype=state_dtype)
     raise ValueError(f"unknown state_dtype {state_dtype!r}")
 
 
@@ -105,15 +110,16 @@ def batch_to(batch: dict, device) -> dict:
 
 def make_train_step(model: STA, optimizer, n_support: int, device="cuda"):
     """Move ``model`` to ``device``, bind ``optimizer`` to its parameters
-    (weight decay where the JAX-layout rank is above 1) and return
+    (weight decay where the JAX-layout rank is above 1, blocks of the
+    int8 modes in the JAX layout) and return
     ``step_fn(batch, conf_alpha=0.4) -> (loss, details)``: one eager
     forward, ``backward()`` and optimizer step on a collated numpy batch.
     The loss comes back as a device tensor (no host sync)."""
     device = torch.device(device)
     model.to(device).train()
     names, params = zip(*model.named_parameters())
-    ndims = jax_param_ndims(model)
-    optimizer.init(params, [ndims[n] > 1 for n in names])
+    ndims, layouts = jax_param_ndims(model), jax_layouts(model)
+    optimizer.init(params, [ndims[n] > 1 for n in names], [layouts[n] for n in names])
     loss_fn = make_loss_fn(model, n_support)
 
     def step_fn(batch: dict, conf_alpha: float = 0.4):
