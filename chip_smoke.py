@@ -11,9 +11,13 @@ Phases, each printed on its own lines; any failure exits non-zero:
                each for sm_90a, all started together; ptxas register and
                spill lines;
   3. K1      — the kernel against its plain PyTorch version at every shape
-               of the SLAM and training paths, bf16 and fp32: finiteness,
-               max errors, kernel and plain times (CUDA events, median
-               after warm-up);
+               of the SLAM and training paths, bf16 and fp32, and in bf16
+               again with q and k scaled x8: finiteness, max errors; device
+               times by CUDA-graph replay (graph_ms) of the kernel, its
+               plain version and, in bf16, SDPA's forward; at the timed
+               shape also the three one call per event pair, host work
+               included (cuda_ms, the method of every kernel's "ms",
+               "plain_ms" and "library_ms" in the kernels JSON);
   4. K2      — K2a (dq) and K2b (dk, dv) against their plain versions at
                the training path's shapes, bf16 and fp32, and their times;
   5. K5      — the fused bf16-moment AdamW against its plain version at the
@@ -27,7 +31,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                leaf (transposed JAX layout) and its smallest eligible leaf:
                p, codes and scales, differing codes counted; times, bound;
   6. SDPA    — torch's scaled_dot_product_attention forward and backward
-               at the K1/K2/K3 timed shapes: a yardstick, never on the path;
+               at the K2/K3 timed shapes: a yardstick, never on the path;
+               beside its backward at K2's shape, the port's whole flash
+               backward (delta, K2a, K2b) timed the same way, through
+               torch.autograd.grad;
   7. SVD     — the pose head's 9D SVD projection on the card against a
                float64 host reference and the Newton ('9D_stable') variant;
   8. agree   — a small fp32 STA forward on the card (kernel path) against
@@ -43,7 +50,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                keyframing over frames rendered in memory from a synthetic
                box scene, through the port's run_sequence and its final
                PGO; checks the keyframe count, a finite [V,4,4]
-               trajectory and that every attention launched K1;
+               trajectory and that every attention launched K1; then,
+               warm, one frame's encode and a batch-8 decode_pairs_fused
+               (median of 10 calls each) with K1's launches per call and
+               its estimated share of the call;
  11. train slice — the same model fine-tuned at 384x512 with
                configs/train_fast.yaml's hyper-parameters and the
                bf16_fused optimizer, batch 2 with 3 supports
@@ -67,6 +77,7 @@ this file, it fails and prints no result.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import statistics
@@ -96,6 +107,8 @@ K1_SHAPES = (  # (q shape, Nk) at the main paths' calls
     ((2, 3, 130, 64), 260),     # Nq != Nk
 )
 K1_TIMED_AT = (16, 12, 769, 64)
+# K1's q shape in the warm frontend calls: one frame's encode, a batch-8 decode
+FRONTEND_SHAPES = {"encode": (1, 16, 768, 64), "decode": (16, 12, 769, 64)}
 TOL = {"bf16_out": 2e-2, "fp32_out": 1e-4, "lse": 1e-3}
 
 
@@ -128,21 +141,67 @@ def cuda_ms(fn, warmup: int = 5, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def check_k1(card: str) -> dict:
+@functools.cache
+def side_stream():
+    """One stream for every graph_ms warm-up: each stream that runs a
+    cuBLAS call keeps a workspace of its own, allocated, for the rest of
+    the process (a new stream per timing raised the slices' peaks)."""
     import torch
+
+    return torch.cuda.Stream()
+
+
+def graph_ms(fn, reps: int = 20, inner: int = 10) -> float:
+    """Device time per call: ``inner`` calls captured in one CUDA graph,
+    replayed ``reps`` times between CUDA events, median over the replays.
+    No host work is timed, so a kernel's time is its own even where the
+    call's host overhead is longer than the kernel."""
+    import torch
+
+    side = side_stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        graph.replay()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / inner)
+    del graph
+    return statistics.median(times)
+
+
+def check_k1(card: str) -> dict:
+    """K1 against its plain version at every K1 shape (bf16 and fp32; q and
+    k scaled x8 in a second bf16 pass, so the logits are large), and its
+    device time beside its plain version's and, in bf16, SDPA's forward;
+    at the timed shape also the three one call per event pair."""
+    import torch
+    import torch.nn.functional as F
 
     from vista_slam_tpu_torch.kernels import flash_attn as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    worst_bf16, timed = 0.0, None
-    for dtype in (torch.bfloat16, torch.float32):
+    worst_bf16, timed, bf16_ms = 0.0, None, {}
+    for dtype, qk_mul in ((torch.bfloat16, 1.0), (torch.bfloat16, 8.0), (torch.float32, 1.0)):
         for qshape, nk in K1_SHAPES:
             B, H, Nq, D = qshape
 
-            def rnd(*shape):
-                return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            def rnd(*shape, mul=1.0):
+                return (torch.randn(shape, generator=gen, device="cuda") * mul).to(dtype)
 
-            q, k, v = rnd(B, H, Nq, D), rnd(B, H, nk, D), rnd(B, H, nk, D)
+            q, k, v = rnd(B, H, Nq, D, mul=qk_mul), rnd(B, H, nk, D, mul=qk_mul), rnd(B, H, nk, D)
             scale = D ** -0.5
             out, lse = fa.flash_attention(q, k, v, scale)
             torch.cuda.synchronize()
@@ -152,19 +211,41 @@ def check_k1(card: str) -> dict:
             err = (out.float() - ref_out.float()).abs().max().item()
             lse_err = (lse - ref_lse).abs().max().item()
             tol = TOL["bf16_out"] if dtype == torch.bfloat16 else TOL["fp32_out"]
-            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, scale))
-            plain_ms = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, scale))
-            log(f"K1 {str(dtype)[6:]} q{list(qshape)} nk={nk}: out err {err:.3e} "
-                f"(tol {tol:g}), lse err {lse_err:.3e} (tol {TOL['lse']:g}); "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+            tag = f"K1 {str(dtype)[6:]} q{list(qshape)} nk={nk}" + (
+                f" (q, k x{qk_mul:g})" if qk_mul != 1 else "")
             if err > tol or lse_err > TOL["lse"]:
-                raise AssertionError(f"K1 {dtype} {qshape}: out err {err} / lse "
-                                     f"err {lse_err} over tolerance")
+                raise AssertionError(f"{tag}: out err {err} / lse err {lse_err} over "
+                                     "tolerance")
             if dtype == torch.bfloat16:
                 worst_bf16 = max(worst_bf16, err)
+            if qk_mul != 1:
+                log(f"{tag}: out err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e} "
+                    f"(tol {TOL['lse']:g}) [{card}]")
+                continue
+            ms = graph_ms(lambda: fa.flash_attention(q, k, v, scale))
+            plain_ms = graph_ms(lambda: fa.flash_attention_plain(q, k, v, scale),
+                                reps=5, inner=3)
+            line = (f"{tag}: out err {err:.3e} (tol {tol:g}), lse err {lse_err:.3e} "
+                    f"(tol {TOL['lse']:g}); device ms (CUDA-graph replay): kernel "
+                    f"{ms:.4f}, plain {plain_ms:.4f}")
+            if dtype == torch.bfloat16:
+                sdpa_ms = graph_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+                line += f", SDPA forward {sdpa_ms:.4f} (K1 / SDPA {ms / sdpa_ms:.3f})"
+                bf16_ms[qshape] = ms
                 if qshape == K1_TIMED_AT:
-                    timed = (ms, plain_ms)
-    return {"max_abs_err": worst_bf16, "ms": timed[0], "plain_ms": timed[1]}
+                    # one call between two events, host work included: the
+                    # method of every kernel's times in the kernels JSON
+                    single = [cuda_ms(fn) for fn in (
+                        lambda: fa.flash_attention(q, k, v, scale),
+                        lambda: fa.flash_attention_plain(q, k, v, scale),
+                        lambda: F.scaled_dot_product_attention(q, k, v))]
+                    timed = {"ms": single[0], "plain_ms": single[1], "library_ms": single[2],
+                             "graph_ms": ms, "library_graph_ms": sdpa_ms}
+                    line += ("; one call per event pair: kernel {:.4f}, plain {:.4f}, SDPA "
+                             "forward {:.4f} (K1 / SDPA {:.3f})").format(
+                                 *single, single[0] / single[2])
+            log(line + f" [{card}]")
+    return {"max_abs_err": worst_bf16, **timed, "bf16_ms": bf16_ms}
 
 
 TRAIN_STEPS = 4  # of the full-width fine-tune (vista_slam_tpu_torch/train/finetune.py)
@@ -256,13 +337,17 @@ def check_k2(card: str) -> dict:
 def time_sdpa(card: str) -> dict:
     """Yardstick only, never on the port's path: one PyTorch
     scaled_dot_product_attention call forward, and its backward through
-    autograd, at the K1, K2 and K3 timed shapes (bf16)."""
+    autograd, at the K2 and K3 timed shapes (bf16); beside SDPA's backward
+    at K2's shape, the port's whole flash backward timed the same way
+    (torch.autograd.grad through FlashAttention: delta, K2a and K2b)."""
     import torch
     import torch.nn.functional as F
 
+    from vista_slam_tpu_torch.ops.attention import FlashAttention
+
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(5)
-    for tag, (qshape, nk) in (("fwd_K1", (K1_TIMED_AT, 769)), ("K2", (K2_TIMED_AT, 769)),
+    for tag, (qshape, nk) in (("K2", (K2_TIMED_AT, 769)),
                               ("K3", (K3_TIMED_AT, K3_TIMED_AT[2]))):
         B, H, Nq, D = qshape
         q, k, v, do = (torch.randn(s, generator=gen, device="cuda").to(torch.bfloat16)
@@ -274,7 +359,15 @@ def time_sdpa(card: str) -> dict:
         out[tag] = (fwd, bwd)
         log(f"SDPA (yardstick, not on the path) bf16 q{list(qshape)}: forward "
             f"{fwd:.4f} ms, backward {bwd:.4f} ms [{card}]")
-    return {"K1": out["fwd_K1"][0], "K2_bwd": out["K2"][1], "K3a": out["K3"][0],
+        if tag == "K2":
+            of = FlashAttention.apply(qg, kg, vg, D ** -0.5)
+            port = cuda_ms(lambda: torch.autograd.grad(of, (qg, kg, vg), do,
+                                                       retain_graph=True))
+            out["K2_port"] = port
+            log(f"K2 like for like, bf16 q{list(qshape)}, torch.autograd.grad with host "
+                f"work included: the port's flash backward (delta, K2a, K2b) {port:.4f} "
+                f"ms vs SDPA's backward {bwd:.4f} ms ({port / bwd:.2f}x) [{card}]")
+    return {"K2_bwd": out["K2"][1], "K2_port": out["K2_port"], "K3a": out["K3"][0],
             "K3b": out["K3"][1]}
 
 
@@ -569,7 +662,7 @@ def check_small_agreement(card: str) -> None:
         raise AssertionError(f"small forward disagrees: {errs}")
 
 
-def run_slice(card: str) -> int:
+def run_slice(card: str, k1_ms: dict) -> int:
     import numpy as np
     import torch
 
@@ -630,7 +723,41 @@ def run_slice(card: str) -> int:
             or calls != {"flash": expected, "plain": 0, "fused": 0}):
         raise AssertionError(f"launches {counts} / paths {calls}, "
                              f"expected {expected} flash launches only")
+    time_frontend(card, slam, frames[0]["rgb"], k1_ms)
     return launches
+
+
+def time_frontend(card: str, slam, rgb, k1_ms: dict) -> None:
+    """Warm frontend calls after the slice's run: one frame's encode and
+    a batch-8 decode_pairs_fused (store writes to the scrap slot), each
+    the median of 10 calls between CUDA events (host work and the decode's
+    fetch included), with K1's launches per call and its estimated share
+    (K1's device ms at the call's shape x launches / call ms)."""
+    import torch
+
+    from vista_slam_tpu_torch.kernels import flash_attn as fa
+
+    fe, store = slam.frontend, slam.pointmaps
+    scrap = store.max_nodes - 1
+    feats = slam.enc_feats
+    pairs = FRONTEND_SHAPES["decode"][0] // 2
+    calls = {
+        "encode (1 frame)": (lambda: fe.encode(rgb), FRONTEND_SHAPES["encode"]),
+        f"decode_pairs_fused ({pairs} pairs)": (
+            lambda: fe.decode_pairs_fused(feats[:pairs], feats[1:pairs + 1], store,
+                                          [scrap] * (2 * pairs), []),
+            FRONTEND_SHAPES["decode"]),
+    }
+    for name, (fn, qshape) in calls.items():
+        before = fa.LAUNCHES
+        fn()
+        torch.cuda.synchronize()
+        per_call = fa.LAUNCHES - before
+        ms = cuda_ms(fn, warmup=3, reps=10)
+        share = k1_ms[qshape] * per_call / ms
+        log(f"frontend warm {name}: {ms:.3f} ms per call (median of 10), {per_call} K1 "
+            f"launches at q{list(qshape)}, K1 {k1_ms[qshape]:.4f} ms each: est. K1 "
+            f"share {share:.3f} [{card}]")
 
 
 def launch_counts() -> dict:
@@ -881,7 +1008,7 @@ def main() -> int:
     check_small_agreement(card)
     check_train_agree(card, "highres")
     check_train_agree(card, "memory_knob")
-    slam_launches = run_slice(card)
+    slam_launches = run_slice(card, k1["bf16_ms"])
     torch.cuda.empty_cache()
     train = run_train_slice(card, "highres")
     torch.cuda.empty_cache()
@@ -892,7 +1019,9 @@ def main() -> int:
               **k3_bounds(K3_TIMED_AT, 2),
               "K4": (k4["bound_ms"], k4["bound_by"]),
               "K5": (k5["bound_ms"], k5["bound_by"])}
-    timed = {"K1": dict(k1, library_ms=sdpa["K1"], timed_at=f"bf16 q{list(K1_TIMED_AT)}"),
+    timed = {"K1": dict(max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
+                        library_ms=k1["library_ms"], timed_at=f"bf16 q{list(K1_TIMED_AT)}",
+                        graph_ms=k1["graph_ms"], library_graph_ms=k1["library_graph_ms"]),
              "K2a": dict(k2["K2a"], library_ms=None, timed_at=f"bf16 q{list(K2_TIMED_AT)}"),
              "K2b": dict(k2["K2b"], library_ms=None, timed_at=f"bf16 q{list(K2_TIMED_AT)}"),
              "K3a": dict(k3["K3a"], library_ms=sdpa["K3a"], timed_at=f"bf16 q{list(K3_TIMED_AT)}"),
@@ -904,16 +1033,15 @@ def main() -> int:
     by_path = {k: {"slam": slam_launches if k == "K1" else 0,
                    "train": train["launches"][k],
                    "train_memory_knob": knob["launches"][k]} for k in KERNELS}
-    log(f"SDPA backward (yardstick for K2a + K2b together, bf16 q{list(K2_TIMED_AT)}): "
-        f"{sdpa['K2_bwd']:.4f} ms vs K2a + K2b {k2['K2a']['ms'] + k2['K2b']['ms']:.4f} ms "
-        f"[{card}]")
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
         "replaces": KERNELS[k][2], "launches": sum(by_path[k].values()),
         "launches_by_path": by_path[k], "max_abs_err": timed[k]["max_abs_err"],
         "ms": timed[k]["ms"], "plain_ms": timed[k]["plain_ms"],
         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
-        "library_ms": timed[k]["library_ms"], "timed_at": timed[k]["timed_at"]}
+        "library_ms": timed[k]["library_ms"], "timed_at": timed[k]["timed_at"],
+        "ms_by": "one call per CUDA event pair, host work included",
+        **{f: timed[k][f] for f in ("graph_ms", "library_graph_ms") if f in timed[k]}}
         for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

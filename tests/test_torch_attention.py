@@ -147,20 +147,47 @@ def cuda_device():
     return torch.device("cuda")
 
 
+_K1_CARD_SHAPES = (  # (b, h, nq, nk): the paths' decoder shape, and edges of the tiling
+    [(2, 12, 769, 769), (2, 3, 130, 260)]
+    + [(b, h, n, n) for b, h in ((1, 1), (16, 12)) for n in (1, 63, 64, 65, 129, 769)]
+    + [(b, h, nq, nk) for b, h in ((1, 1), (16, 12)) for nq, nk in ((130, 260), (260, 130))])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
-def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol):
+@pytest.mark.parametrize("b,h,nq,nk", _K1_CARD_SHAPES)
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, tol, b, h, nq, nk):
+    """K1 against its plain version, at unit scale and with q and k scaled
+    x8 (large logits: the running max matters); two calls agree bit for
+    bit (no atomics)."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    for (b, h, nq, nk) in [(2, 12, 769, 769), (2, 3, 130, 260)]:
-        q = torch.randn((b, h, nq, 64), generator=gen, device=cuda_device).to(dtype)
-        k = torch.randn((b, h, nk, 64), generator=gen, device=cuda_device).to(dtype)
+    for qk_mul in (1.0, 8.0):
+        q = (torch.randn((b, h, nq, 64), generator=gen, device=cuda_device) * qk_mul).to(dtype)
+        k = (torch.randn((b, h, nk, 64), generator=gen, device=cuda_device) * qk_mul).to(dtype)
         v = torch.randn((b, h, nk, 64), generator=gen, device=cuda_device).to(dtype)
         launches = flash_attn.LAUNCHES
         out, lse = flash_attn.flash_attention(q, k, v, 0.125)
+        again = flash_attn.flash_attention(q, k, v, 0.125)
         torch.cuda.synchronize()
-        assert flash_attn.LAUNCHES == launches + 1
+        assert flash_attn.LAUNCHES == launches + 2
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
         ref_out, ref_lse = flash_attn.flash_attention_plain(q, k, v, 0.125)
         _assert_close(out.float().cpu(), ref_out.float().cpu().numpy(), tol)
+        _assert_close(lse.cpu(), ref_lse.cpu().numpy(), 1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0, 1.0])
+def test_flash_kernel_takes_any_scale_on_card(cuda_device, scale):
+    """K1 in bf16 takes any scale, as the TPU kernel does: zero, negative
+    and large, against its plain version (masked tail included)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    for (b, h, nq, nk) in [(1, 2, 129, 129), (2, 3, 130, 260)]:
+        q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(torch.bfloat16)
+                   for s in ((b, h, nq, 64), (b, h, nk, 64), (b, h, nk, 64)))
+        out, lse = flash_attn.flash_attention(q, k, v, scale)
+        ref_out, ref_lse = flash_attn.flash_attention_plain(q, k, v, scale)
+        _assert_close(out.float().cpu(), ref_out.float().cpu().numpy(), 2e-2)
         _assert_close(lse.cpu(), ref_lse.cpu().numpy(), 1e-3)
 
 

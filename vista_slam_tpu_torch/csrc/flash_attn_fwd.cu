@@ -1,29 +1,53 @@
-// Flash-attention forward for Hopper (sm_90a), head dim 64.
+// Flash-attention forward for Hopper (sm_90a), head dim 64: kernel K1.
 //
 // Replaces the TPU kernel vista_slam_tpu/ops/pallas/flash.py:_attn_kernel
-// (launched by _fwd_impl). Same function: per (batch*head, query row)
+// (launched at flash.py:115 by _fwd_impl). Same function: per (batch*head,
+// query row)
 //   S   = Q K^T * scale                  fp32
 //   S[:, key >= nk] = -inf
 //   out = (exp(S - max) rounded to the input dtype) V / rowsum   in q's dtype
-//   lse = max + log(rowsum)                                      fp32 [BH, Nq]
+//   lse = max + log(rowsum)                     fp32 [BH, Nq], natural log
 //
-// What bounds it on the card, and what the design does about it:
-// The TPU kernel keeps one head's whole K and V resident in VMEM and scores
-// a 256-row query block against all keys in one pass. A Hopper block has at
-// most 227 KB of shared memory and far fewer registers than VMEM, so this
-// kernel tiles over keys with an online softmax instead: one block per
-// (batch*head, 64-row query tile) walks 64-key tiles of K and V held in
-// shared memory, carrying the running row max, row sum and the fp32 output
-// accumulator across tiles. At the path's shapes (N = 768/769, D = 64) one
-// head does 4*N*N*D flops on 8*N*D bytes of bf16 Q/K/V/O, about N/2 flops per
-// byte, so the kernel is bound by tensor-core work, not by device memory.
-// This first version issues the two products with WMMA (mma.sync bf16
-// fragments, fp32 accumulation) and passes S, P and the accumulator through
-// shared memory between them; the shared-memory round trips and the
-// __syncthreads per key tile are what bound it now. wgmma, TMA and warp
-// specialisation are later work. The fp32 variant (tests and parity checks)
-// uses plain FMA, one query row per thread, because the tensor cores' fp32
-// path (TF32) would not hold fp32 accuracy.
+// What bounds it on the card. One head at Nq = Nk = N, D = 64 does 4 N^2 D
+// flops of products on 8 N D bytes of bf16 Q, K, V and O: N / 2 flops per
+// byte, above the H100's ~295 once N > 590, so the products bound it, not
+// device memory (at q [16,12,769,64]: 29.1 GFLOP, 0.0294 ms at 989
+// TFLOP/s, against 75.6 MB, 0.0226 ms at 3.35 TB/s). The softmax is a
+// second ceiling as high: N^2 exponentials per head (1.1e8 at that shape)
+// at 16 per clock per SM take about as long as the products at D = 64, so
+// a warpgroup that runs its softmax between its two products cannot beat
+// twice the bound alone; other warpgroups on the SM fill the gaps.
+//
+// What the design does:
+// - One block is one warpgroup (4 warps) and owns 64 query rows; at 93
+//   registers a thread and 41 KB of shared memory, five blocks share an
+//   SM, so while one warpgroup runs its softmax others keep the tensor
+//   cores busy. 64-row blocks fill the card at every shape of the paths
+//   (192 blocks for the SLAM encoder's q [1,16,768,64] on 132 SMs).
+// - S = Q K^T by wgmma.m64n64k16 with Q and K in shared memory (both
+//   K-major, as stored). The scores come out in accumulator registers; the
+//   scores are scaled by scale log2(e) in place, the row max is taken by
+//   quad shuffles and P = exp2(S - m) by one ex2.approx per score, in
+//   registers, so any scale works, as in the TPU kernel. The accumulator
+//   layout of two n8 column tiles is the A-fragment layout of a k16 step,
+//   so P, rounded to bf16, is the register A operand of O += P V
+//   (wgmma.m64n64k16, V from shared memory with the transpose bit: V is
+//   MN-major as stored). O is an fp32 register accumulator rescaled in
+//   place. Only bf16 Q, K and V pass through shared memory.
+// - 64-key K and V tiles are copied by cp.async into two stages each, one
+//   tile ahead of the products, laid out with the 128-byte XOR swizzle
+//   that the wgmma descriptors read (no bank conflicts on either side);
+//   one __syncthreads per key tile.
+// - Only the last key tile (nk % 64 != 0) applies the -inf mask; only the
+//   store of the last query tile is guarded. At nk = 769 the last tile
+//   holds one key, and its full-width products and exponentials are 1/13
+//   of the work: kept, for one loop body.
+// - Epilogue: O / l in registers, staged through the Q tile's shared
+//   memory and written with 16-byte coalesced stores; lse = (m + log2 l)
+//   ln 2, in natural log (m is kept in the log2 domain).
+// The fp32 variant (tests and parity checks) uses plain FMA, one query row
+// per thread, because the tensor cores' fp32 path (TF32) would not hold
+// fp32 accuracy.
 //
 // Plain C interface, loaded with ctypes; launches on the caller's stream and
 // returns the cudaError_t of the launch.
@@ -31,159 +55,319 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
-
 constexpr int D = 64;
 
-// ---- bf16: WMMA tiles ------------------------------------------------------
-constexpr int BQ = 64;                 // query rows per block
-constexpr int BK = 64;                 // keys per tile
-constexpr int WARPS = BQ / 16;         // each warp owns 16 query rows
-constexpr int THREADS = WARPS * 32;
-// shared-memory row strides, padded past the 128-byte bank period so that
-// the rows a warp touches at once fall in different banks (WMMA needs the
-// strides to stay multiples of 16 bytes)
-constexpr int QKV_LD = D + 8;          // bf16
-constexpr int S_LD = BK + 4;           // fp32
-constexpr int P_LD = BK + 8;           // bf16
-constexpr int O_LD = D + 4;            // fp32
-constexpr int SMEM_BF16 = BQ * QKV_LD * 2   // Q
-                        + BK * QKV_LD * 2   // K
-                        + BK * QKV_LD * 2   // V
-                        + BQ * S_LD * 4     // S (fp32 scores)
-                        + BQ * P_LD * 2     // P (probabilities, bf16)
-                        + BQ * O_LD * 4;    // O (fp32 accumulator)
+// ---- bf16: wgmma, scores and output in registers ---------------------------
+constexpr int TILE = 64;                  // query rows per warpgroup, keys per tile
+constexpr int TILE_BYTES = TILE * D * 2;  // one 128-byte row per token
+constexpr int WG_THREADS = 128;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// rows [row0, row0 + rows) of a row-major [n, D] bf16 matrix -> shared
-// memory, 16 bytes per thread and step; rows past n are zero-filled
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* src,
-                                               int row0, int rows, int n) {
-  constexpr int CHUNKS_PER_ROW = D / 8;
-  for (int c = threadIdx.x; c < rows * CHUNKS_PER_ROW; c += blockDim.x) {
-    const int r = c / CHUNKS_PER_ROW;
-    const int col = (c % CHUNKS_PER_ROW) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n) {
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + col);
-    }
-    *reinterpret_cast<uint4*>(dst + r * QKV_LD + col) = val;
+// Q, two K and two V tiles, and slack to align them to 1024 bytes
+constexpr int SMEM_BF16 = 5 * TILE_BYTES + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk ch of row r in a [rows, 64] bf16 tile with
+// the 128-byte swizzle (chunk index XOR row index mod 8). Tiles start on
+// 1024-byte boundaries, as the swizzle of the wgmma descriptors assumes.
+__device__ __forceinline__ uint32_t swz(int r, int ch) {
+  return r * 128 + ((ch ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  // src-size 0 writes zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// all but this thread's N newest copy groups have landed and are visible
+// to the async proxy (wgmma reads shared memory through it); a barrier
+// must follow
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// rows [row0, row0 + 64) of a row-major [n, 64] bf16 matrix -> a swizzled
+// tile at dst, 16 bytes per thread and step; rows past n are zero-filled
+__device__ __forceinline__ void copy_tile(uint32_t dst, const __nv_bfloat16* src,
+                                          int row0, int n) {
+#pragma unroll
+  for (int i = 0; i < TILE * 8 / WG_THREADS; ++i) {
+    const int c = threadIdx.x + i * WG_THREADS;
+    const int r = c >> 3, ch = c & 7;
+    const bool valid = row0 + r < n;
+    cp_async16(dst + swz(r, ch), src + (size_t)(valid ? row0 + r : 0) * D + ch * 8, valid);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// wgmma shared-memory descriptor of a swizzled tile (layout type 1, the
+// 128-byte swizzle): start address, leading byte offset, stride byte
+// offset 1024 (the next group of 8 rows), all in 16-byte units. The
+// leading offset is not read for K-major swizzled operands; for the
+// MN-major V tile it is the step to the next 64 columns, which a 64-wide
+// product never takes.
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of d across an async product
+__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define ACC32(d)                                                              \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),            \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),        \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),        \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),        \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),        \
+      "+f"(d[31])
+#define ACC32_LIST                                                            \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "   \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "    \
+  "%30, %31}"
+
+// d (+)= A B over one k16 step, m64n64, bf16 in, fp32 accumulate; A and B
+// from shared memory, both K-major. accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_LIST
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B over one k16 step, m64n64: A from registers (each warp's 16
+// rows in the m16n8k16 A-fragment layout), B from shared memory MN-major
+// (transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " ACC32_LIST
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : ACC32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// One warpgroup's online softmax over a 64-key tile of raw scores s: scales
+// them by scale log2(e) in place, updates the row max m (of the scaled
+// scores), this thread's part of the row sum l, rescales o, and leaves
+// P = exp2(s - m) as bf16 pairs in p, in the A-fragment order of the PV
+// steps. valid < 64 masks keys >= valid.
+//
+// Accumulator layout of m64n64 (S and O alike): warp w of the warpgroup
+// holds rows 16w + g and 16w + g + 8 (g = lane / 4); register 4i + e (e <
+// 2) is row 16w + g, column 8i + 2(lane % 4) + e, and 4i + 2 + e the same
+// column of row 16w + g + 8. Columns 16kk .. 16kk + 15 (tiles 2kk, 2kk + 1)
+// in that layout are the A fragment of key step kk.
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&m)[2], float (&l)[2],
+                                             float (&o)[32], uint32_t (&p)[16],
+                                             float scale_log2, int valid) {
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] *= scale_log2;
+  if (valid < TILE) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (8 * i + 2 * t + e >= valid) s[4 * i + e] = s[4 * i + 2 + e] = -INFINITY;
+  }
+  float mx0 = m[0], mx1 = m[1];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
+  }
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+  mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+  mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+  // every tile holds a real key, so mx is finite; alpha is 0 on tile 0
+  const float alpha0 = ex2(m[0] - mx0);
+  const float alpha1 = ex2(m[1] - mx1);
+  m[0] = mx0;
+  m[1] = mx1;
+  float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float p0 = ex2(s[4 * i] - mx0);
+    const float p1 = ex2(s[4 * i + 1] - mx0);
+    const float p2 = ex2(s[4 * i + 2] - mx1);
+    const float p3 = ex2(s[4 * i + 3] - mx1);
+    ls0 += p0 + p1;
+    ls1 += p2 + p3;
+    p[2 * i] = pack_bf16(p0, p1);
+    p[2 * i + 1] = pack_bf16(p2, p3);
+  }
+  l[0] = l[0] * alpha0 + ls0;
+  l[1] = l[1] * alpha1 + ls1;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    o[4 * i] *= alpha0;
+    o[4 * i + 1] *= alpha0;
+    o[4 * i + 2] *= alpha1;
+    o[4 * i + 3] *= alpha1;
+  }
+}
+
+// S = Q K^T into s, started and committed, not waited for; a k16 step is 32
+// bytes further along the swizzled rows
+__device__ __forceinline__ void start_scores(float (&s)[32], uint64_t dq, uint64_t dk) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) wgmma_ss(s, dq + 2 * kk, dk + 2 * kk, kk);
+  wgmma_commit();
+}
+
+// O += P V, started and committed; key step kk is 16 rows (2048 bytes)
+// further into the V tile
+__device__ __forceinline__ void start_pv(float (&o)[32], const uint32_t (&p)[16],
+                                         uint64_t dv) {
+  reg_fence(o);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < TILE / 16; ++kk)
+    wgmma_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
+             dv + kk * (2048 >> 4));
+  wgmma_commit();
+}
+
+// One block is one warpgroup and owns 64 query rows. Shared memory: the Q
+// tile, two K stages and two V stages; K and V are copied one tile ahead of
+// the products. The warpgroup scores tile j, runs its softmax, then
+// multiplies; other blocks on the SM fill the tensor cores meanwhile. One
+// __syncthreads per key tile.
+__global__ void __launch_bounds__(WG_THREADS, 5)
 flash_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k,
                const __nv_bfloat16* __restrict__ v,
                __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
-               int nq, int nk, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Ks = Qs + BQ * QKV_LD;
-  __nv_bfloat16* Vs = Ks + BK * QKV_LD;
-  float* Ss = reinterpret_cast<float*>(Vs + BK * QKV_LD);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(Ss + BQ * S_LD);
-  float* Os = reinterpret_cast<float*>(Ps + BQ * P_LD);
+               int nq, int nk, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023u) & ~1023u;  // Q, then the output tile
+  const uint32_t sk = sq + TILE_BYTES;          // K stages 0, 1
+  const uint32_t sv = sk + 2 * TILE_BYTES;      // V stages 0, 1
+  unsigned char* const sq_ptr = smem_raw + (sq - raw);
 
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * TILE;
   const __nv_bfloat16* qb = q + (size_t)bh * nq * D;
   const __nv_bfloat16* kb = k + (size_t)bh * nk * D;
   const __nv_bfloat16* vb = v + (size_t)bh * nk * D;
-
-  const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wrow = warp * 16;          // the warp's first row in the tile
-  // softmax work split: two lanes per row, interleaved columns half + 2c
-  const int r = wrow + lane / 2;
-  const int half = lane % 2;
+  const int t = lane % 4;
+  const int r0 = threadIdx.x / 32 * 16 + lane / 4;  // this thread's rows: r0, r0 + 8
+  const int ntiles = (nk + TILE - 1) / TILE;
 
-  load_tile_bf16(Qs, qb, q0, BQ, nq);
-  for (int i = threadIdx.x; i < BQ * O_LD; i += THREADS) Os[i] = 0.f;
+  auto kstage = [&](int j) { return sk + (j & 1) * TILE_BYTES; };
+  auto vstage = [&](int j) { return sv + (j & 1) * TILE_BYTES; };
+  auto copy_k = [&](int j) {
+    if (j < ntiles) copy_tile(kstage(j), kb, j * TILE, nk);
+  };
+  auto copy_v = [&](int j) {
+    if (j < ntiles) copy_tile(vstage(j), vb, j * TILE, nk);
+  };
 
-  float m = -INFINITY;  // running row max (both lanes of a row hold it)
-  float l = 0.f;        // running row sum
+  copy_tile(sq, qb, q0, nq);
+  copy_k(0);
+  copy_v(0);
+  cp_async_commit();
 
-  for (int k0 = 0; k0 < nk; k0 += BK) {
-    __syncthreads();  // the previous tile's K/V reads are done
-    load_tile_bf16(Ks, kb, k0, BK, nk);
-    load_tile_bf16(Vs, vb, k0, BK, nk);
+  const uint64_t dq = desc128(sq, 16);
+  float o[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};  // running max of the scaled row scores
+  float l[2] = {0.f, 0.f};              // this thread's part of the row sum
+  uint32_t p[16];
+  float s[32];
+
+  for (int j = 0; j < ntiles; ++j) {
+    // K and V tile j have landed, and the products of tile j - 1 are done:
+    // stage j + 1 of K and V is free
+    cp_async_wait<0>();
     __syncthreads();
-
-    // S_w = Q_w K^T (16 x BK per warp)
-    for (int j = 0; j < BK / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-      for (int d = 0; d < D / 16; ++d) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + wrow * QKV_LD + d * 16, QKV_LD);
-        wmma::load_matrix_sync(b, Ks + j * 16 * QKV_LD + d * 16, QKV_LD);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Ss + wrow * S_LD + j * 16, acc, S_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // online softmax over this warp's rows
-    const float* srow = Ss + r * S_LD + half;
-    const int valid = nk - k0 - half;  // column half + 2c is a real key iff 2c < valid
-    float s[32];
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      s[c] = 2 * c < valid ? srow[2 * c] * scale : -INFINITY;
-      tmax = fmaxf(tmax, s[c]);
-    }
-    tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
-    // every tile holds at least one real key, so m_new is finite
-    const float m_new = fmaxf(m, tmax);
-    const float alpha = expf(m - m_new);  // 0 on the first tile
-    float tsum = 0.f;
-    __nv_bfloat16* prow = Ps + r * P_LD + half;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const float p = expf(s[c] - m_new);
-      tsum += p;
-      prow[2 * c] = __float2bfloat16(p);
-    }
-    tsum += __shfl_xor_sync(0xffffffffu, tsum, 1);
-    l = l * alpha + tsum;
-    m = m_new;
-    float* orow = Os + r * O_LD + half;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) orow[2 * c] *= alpha;
-    __syncwarp();
-
-    // O_w += P_w V (16 x D per warp)
-    for (int j = 0; j < D / 16; ++j) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::load_matrix_sync(acc, Os + wrow * O_LD + j * 16, O_LD, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ps + wrow * P_LD + kk * 16, P_LD);
-        wmma::load_matrix_sync(b, Vs + kk * 16 * QKV_LD + j * 16, QKV_LD);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      wmma::store_matrix_sync(Os + wrow * O_LD + j * 16, acc, O_LD, wmma::mem_row_major);
-    }
-    __syncwarp();
+    copy_k(j + 1);
+    copy_v(j + 1);
+    cp_async_commit();
+    start_scores(s, dq, desc128(kstage(j), 16));
+    wgmma_wait<0>();
+    reg_fence(s);
+    softmax_tile(s, m, l, o, p, scale_log2, nk - j * TILE);
+    start_pv(o, p, desc128(vstage(j), 1024));
+    wgmma_wait<0>();
+    reg_fence(o);
   }
 
-  if (q0 + r < nq) {
-    const float* orow = Os + r * O_LD + half;
-    __nv_bfloat16* dst = out + ((size_t)bh * nq + q0 + r) * D + half;
 #pragma unroll
-    for (int c = 0; c < 32; ++c) dst[2 * c] = __float2bfloat16(orow[2 * c] / l);
-    if (half == 0) lse[(size_t)bh * nq + q0 + r] = m + logf(l);
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  __syncthreads();  // no product reads the Q tile any more
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    *reinterpret_cast<uint32_t*>(sq_ptr + swz(r0, i) + 4 * t) =
+        pack_bf16(o[4 * i] / l[0], o[4 * i + 1] / l[0]);
+    *reinterpret_cast<uint32_t*>(sq_ptr + swz(r0 + 8, i) + 4 * t) =
+        pack_bf16(o[4 * i + 2] / l[1], o[4 * i + 3] / l[1]);
+  }
+  // lse = (m + log2 l) ln 2, in natural log as the plain version
+  const int row = q0 + r0;
+  if (t == 0 && row < nq) lse[(size_t)bh * nq + row] = (m[0] + log2f(l[0])) * LN2;
+  if (t == 0 && row + 8 < nq) lse[(size_t)bh * nq + row + 8] = (m[1] + log2f(l[1])) * LN2;
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TILE * 8 / WG_THREADS; ++i) {
+    const int c = threadIdx.x + i * WG_THREADS;
+    const int r = c >> 3, ch = c & 7;
+    if (q0 + r < nq) {
+      *reinterpret_cast<uint4*>(out + ((size_t)bh * nq + q0 + r) * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(sq_ptr + swz(r, ch));
+    }
   }
 }
 
@@ -261,7 +445,8 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q [bh, nq, 64], k/v [bh, nk, 64],
-// out like q, lse [bh, nq] fp32; all contiguous on the current device.
+// out like q, lse [bh, nq] fp32; all contiguous, 16-byte aligned, on the
+// current device.
 extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k,
                               const void* v, void* out, float* lse, int bh,
                               int nq, int nk, float scale, void* stream) {
@@ -271,19 +456,20 @@ extern "C" int flash_attn_fwd(int dtype, const void* q, const void* k,
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BF16);
     if (err != cudaSuccess) return err;
-    dim3 grid((nq + BQ - 1) / BQ, bh);
-    flash_fwd_bf16<<<grid, THREADS, SMEM_BF16, st>>>(
+    dim3 grid((nq + TILE - 1) / TILE, bh);
+    flash_fwd_bf16<<<grid, WG_THREADS, SMEM_BF16, st>>>(
         static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
-        lse, nq, nk, scale);
-  } else if (dtype == 0) {
+        static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), lse,
+        nq, nk, scale * LOG2E);
+    return cudaGetLastError();
+  }
+  if (dtype == 0) {
     dim3 grid((nq + F_BQ - 1) / F_BQ, bh);
     flash_fwd_f32<<<grid, F_BQ, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), lse, nq, nk,
         scale);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  return cudaErrorInvalidValue;
 }

@@ -8,7 +8,8 @@ Each source's header says what bounds it on the card and how the design
 answers that.
 
 ``flash_attention(q, k, v, scale)`` returns ``(out, lse)``:
-  q [B, H, Nq, 64], k/v [B, H, Nk, 64], bf16 or fp32, contiguous;
+  q [B, H, Nq, 64], k/v [B, H, Nk, 64], bf16 or fp32, contiguous, on
+  16-byte boundaries;
   out [B, H, Nq, 64] in q's dtype; lse fp32 [B*H, Nq].
 ``flash_attention_bwd(q, k, v, do, lse, delta, scale)`` returns
 ``(dq, dk, dv)`` in the inputs' dtype, with delta = rowsum(do * out) fp32
@@ -151,6 +152,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: empty query or key set")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q/k/v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q/k/v must start on 16-byte boundaries "
+                         "(the kernels copy 16 bytes at a time)")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
