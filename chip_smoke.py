@@ -25,7 +25,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
   5a. K3     — K3a (fused short-sequence attention forward) and K3b (its
                one-kernel backward) against their plain versions at the
                memory-knob training path's shapes and at N = 130, 256, 1024,
-               bf16 and fp32, their times and bounds;
+               bf16 and fp32, two calls of each bit-identical; their times
+               one call per event pair and bounds; device times by
+               CUDA-graph replay beside SDPA's forward and SDPA's flash
+               backward called alone (K3b alone and with delta);
   5b. K4     — the int8-moment AdamW against its plain version on the
                memory-knob model's largest conv leaf, its largest Linear
                leaf (transposed JAX layout) and its smallest eligible leaf:
@@ -34,7 +37,7 @@ Phases, each printed on its own lines; any failure exits non-zero:
                at the K2/K3 timed shapes: a yardstick, never on the path;
                beside its backward at K2's shape, the port's whole flash
                backward (delta, K2a, K2b) timed the same way, through
-               torch.autograd.grad;
+               torch.autograd.grad, and both again by CUDA-graph replay;
   7. SVD     — the pose head's 9D SVD projection on the card against a
                float64 host reference and the Newton ('9D_stable') variant;
   8. agree   — a small fp32 STA forward on the card (kernel path) against
@@ -68,7 +71,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                make_train_step: the same readings, the optimizer state's
                bytes beside bf16 moments', and K3a/K3b/K4 launch counts
                equal to those derived from the model, with no K1/K2/K5 and
-               no plain or flash attention.
+               no plain or flash attention; before the steps, the first
+               batch's loss forward only through K3a and through K3's
+               plain versions, their relative gap printed beside the
+               launch counts (a reading, not gated).
 Each launch count is set to 0 just before a path runs and read just after.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the port next to
@@ -337,13 +343,16 @@ def check_k2(card: str) -> dict:
 def time_sdpa(card: str) -> dict:
     """Yardstick only, never on the port's path: one PyTorch
     scaled_dot_product_attention call forward, and its backward through
-    autograd, at the K2 and K3 timed shapes (bf16); beside SDPA's backward
-    at K2's shape, the port's whole flash backward timed the same way
-    (torch.autograd.grad through FlashAttention: delta, K2a and K2b)."""
+    autograd, at the K2 and K3 timed shapes (bf16), one call per event pair;
+    beside SDPA's backward at K2's shape, the port's whole flash backward
+    timed the same way (torch.autograd.grad through FlashAttention: delta,
+    K2a and K2b), and both again by CUDA-graph replay (delta, K2a and K2b
+    against SDPA's flash backward called alone)."""
     import torch
     import torch.nn.functional as F
 
-    from vista_slam_tpu_torch.ops.attention import FlashAttention
+    from vista_slam_tpu_torch.kernels import flash_attn as fa
+    from vista_slam_tpu_torch.ops.attention import FlashAttention, _delta
 
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -367,8 +376,33 @@ def time_sdpa(card: str) -> dict:
             log(f"K2 like for like, bf16 q{list(qshape)}, torch.autograd.grad with host "
                 f"work included: the port's flash backward (delta, K2a, K2b) {port:.4f} "
                 f"ms vs SDPA's backward {bwd:.4f} ms ({port / bwd:.2f}x) [{card}]")
-    return {"K2_bwd": out["K2"][1], "K2_port": out["K2_port"], "K3a": out["K3"][0],
-            "K3b": out["K3"][1]}
+            # device time: the same two backwards by CUDA-graph replay
+            scale = D ** -0.5
+            o_p, lse_p = fa.flash_attention(q, k, v, scale)
+            port_g = graph_ms(lambda: fa.flash_attention_bwd(q, k, v, do, lse_p,
+                                                             _delta(do, o_p), scale))
+            sdpa_g = graph_ms(sdpa_backward(q, k, v, do, scale))
+            out["K2_graph"] = (port_g, sdpa_g)
+            log(f"K2 like for like, bf16 q{list(qshape)}, device ms by CUDA-graph replay: "
+                f"the port's flash backward (delta, K2a, K2b) {port_g:.4f} vs SDPA's flash "
+                f"backward {sdpa_g:.4f} ({port_g / sdpa_g:.2f}x) [{card}]")
+    return {"K2_bwd": out["K2"][1], "K2_port": out["K2_port"], "K2_graph": out["K2_graph"],
+            "K3a": out["K3"][0], "K3b": out["K3"][1]}
+
+
+def sdpa_backward(q, k, v, do, scale: float):
+    """SDPA's flash-attention backward alone, as one call for graph replay:
+    aten's op, called directly after its forward has run once here. It
+    computes rowsum(dO * O) itself, so the port's like-for-like time is
+    delta + its backward kernels. A yardstick, never on the port's path."""
+    import torch
+
+    fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, False, False,
+                                                             scale=scale)
+    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
+        do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset,
+        scale=scale)
 
 
 def k5_leaf_sizes() -> tuple[int, int]:
@@ -453,13 +487,20 @@ def k3_bounds(shape, itemsize: int) -> dict:
 
 
 def check_k3(card: str) -> dict:
+    """K3a and K3b against their plain versions at every K3 shape (bf16 and
+    fp32), two calls of each bit-identical; in bf16 their times one call per
+    event pair (as PRs 3-4) and device times by CUDA-graph replay: K3a
+    beside SDPA's forward, K3b and delta + K3b beside SDPA's flash backward
+    called alone (which computes its delta itself)."""
     import torch
+    import torch.nn.functional as F
 
     from vista_slam_tpu_torch.kernels import attn_train as at
+    from vista_slam_tpu_torch.ops.attention import _delta
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     worst = {"K3a": 0.0, "K3b": 0.0}
-    timed = {}
+    timed, graphs = {}, {}
     for dtype, tname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for shape in K3_SHAPES:
             B, H, N, D = shape
@@ -470,7 +511,10 @@ def check_k3(card: str) -> dict:
             delta = (do.float() * out.float()).sum(-1).reshape(B * H, N)
             args = (q, k, v, do, lse, delta, scale)
             grads = at.fused_attention_bwd(*args)
+            again = (*at.fused_attention_fwd(q, k, v, scale), *at.fused_attention_bwd(*args))
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip((out, lse, *grads), again)):
+                raise AssertionError(f"K3 {tname} {shape}: two calls differ")
             ref_out, ref_lse = at.fused_attention_fwd_plain(q, k, v, scale)
             ref = at.fused_attention_bwd_plain(*args)
             for name, t in (("out", out), ("lse", lse), *zip(("dq", "dk", "dv"), grads)):
@@ -487,26 +531,42 @@ def check_k3(card: str) -> dict:
                     f"(tol {K3_TOL[tname + '_out']:g}), lse err {lse_err:.3e} (tol "
                     f"{K3_TOL['lse']:g}); K3b normwise "
                     + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
-                    + f" (tol {K3_TOL[tname]:g})")
+                    + f" (tol {K3_TOL[tname]:g}); two calls bit-identical")
             if dtype == torch.bfloat16:  # the path's type is timed
                 ms = (cuda_ms(lambda: at.fused_attention_fwd(q, k, v, scale)),
                       cuda_ms(lambda: at.fused_attention_fwd_plain(q, k, v, scale)),
                       cuda_ms(lambda: at.fused_attention_bwd(*args)),
                       cuda_ms(lambda: at.fused_attention_bwd_plain(*args)))
+                g = {"K3a": graph_ms(lambda: at.fused_attention_fwd(q, k, v, scale)),
+                     "K3b": graph_ms(lambda: at.fused_attention_bwd(*args)),
+                     "delta_K3b": graph_ms(lambda: at.fused_attention_bwd(
+                         q, k, v, do, lse, _delta(do, out), scale)),
+                     "sdpa_fwd": graph_ms(lambda: F.scaled_dot_product_attention(
+                         q, k, v, scale=scale)),
+                     "sdpa_bwd": graph_ms(sdpa_backward(q, k, v, do, scale))}
+                graphs[shape] = g
                 b = k3_bounds(shape, 2)
-                line += (f"; K3a {ms[0]:.4f} ms vs plain {ms[1]:.4f} (bound {b['K3a'][0]:.4f}),"
-                         f" K3b {ms[2]:.4f} ms vs plain {ms[3]:.4f} (bound "
-                         f"{b['K3b'][0]:.4f})")
+                line += (f"; one call per event pair: K3a {ms[0]:.4f} ms vs plain {ms[1]:.4f}"
+                         f" (bound {b['K3a'][0]:.4f}), K3b {ms[2]:.4f} ms vs plain "
+                         f"{ms[3]:.4f} (bound {b['K3b'][0]:.4f}); device ms (CUDA-graph "
+                         f"replay): K3a {g['K3a']:.4f} vs SDPA forward {g['sdpa_fwd']:.4f} "
+                         f"({g['K3a'] / g['sdpa_fwd']:.3f}x), K3b {g['K3b']:.4f}, delta + K3b "
+                         f"{g['delta_K3b']:.4f} vs SDPA flash backward {g['sdpa_bwd']:.4f} "
+                         f"({g['delta_K3b'] / g['sdpa_bwd']:.3f}x)")
                 worst["K3a"] = max(worst["K3a"], out_err)
                 worst["K3b"] = max(worst["K3b"], abs_err)
                 if shape == K3_TIMED_AT:
-                    timed = {"K3a": ms[:2], "K3b": ms[2:]}
+                    timed = {"K3a": ms[:2] + (g["K3a"], g["sdpa_fwd"]),
+                             "K3b": ms[2:] + (g["K3b"], g["sdpa_bwd"])}
             log(line + f" [{card}]")
             if (out_err > K3_TOL[tname + "_out"] or lse_err > K3_TOL["lse"]
                     or max(errs.values()) > K3_TOL[tname]):
                 raise AssertionError(f"K3 {tname} {shape}: errors over tolerance")
-    return {name: {"max_abs_err": worst[name], "ms": timed[name][0],
-                   "plain_ms": timed[name][1]} for name in worst}
+    result = {name: {"max_abs_err": worst[name], "ms": timed[name][0],
+                     "plain_ms": timed[name][1], "graph_ms": timed[name][2],
+                     "library_graph_ms": timed[name][3]} for name in worst}
+    result["K3b"]["graph_ms_with_delta"] = graphs[K3_TIMED_AT]["delta_K3b"]
+    return result
 
 
 def k4_leaves() -> list:
@@ -863,6 +923,31 @@ def check_train_agree(card: str, preset: str) -> None:
         raise AssertionError(f"train-agree {preset}: card and CPU disagree: {errs}")
 
 
+def plain_route_losses(model, batch, n_support: int) -> dict:
+    """The memory-knob loss of one batch, forward only (no gradient), on the
+    model's current weights: once through K3a and once with
+    FusedTrainAttention routed to K3's plain versions, and their relative
+    gap. Not gated: a random-weight network in bf16 amplifies rounding, so
+    the gap is a reading for PERF.md, watched from run to run."""
+    import torch
+
+    from vista_slam_tpu_torch.kernels import attn_train as at
+    from vista_slam_tpu_torch.train import finetune
+    from vista_slam_tpu_torch.train.step import batch_to, make_loss_fn
+
+    loss_fn, b = make_loss_fn(model, n_support), batch_to(batch, "cuda")
+    out = {}
+    with torch.no_grad():
+        out["kernel"] = loss_fn(b, finetune.TRAIN["alpha_init"])[0].item()
+        fwd, at.fused_attention_fwd = at.fused_attention_fwd, at.fused_attention_fwd_plain
+        try:
+            out["plain"] = loss_fn(b, finetune.TRAIN["alpha_init"])[0].item()
+        finally:
+            at.fused_attention_fwd = fwd
+    out["gap"] = abs(out["kernel"] - out["plain"]) / abs(out["plain"])
+    return out
+
+
 def run_train_slice(card: str, preset: str) -> dict:
     """A training preset at full width (train/finetune.py), TRAIN_STEPS
     steps of the preset's batch through make_train_step: highres.yaml's
@@ -909,6 +994,8 @@ def run_train_slice(card: str, preset: str) -> dict:
     route = "flash" if preset == "highres" else "fused"
     expected_calls = {"flash": 0, "plain": 0, "fused": 0, route: per_step * TRAIN_STEPS}
     first = {n: p.detach().clone() for n, p in model.named_parameters()}
+    if preset == "memory_knob":
+        plain = plain_route_losses(model, batches[0], S)
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -933,6 +1020,10 @@ def run_train_slice(card: str, preset: str) -> dict:
         f"{batch * S / ms * 1e3:.2f} pairs/s; peak device memory {peak:.2f} GiB [{card}]")
     log(f"{tag}: params changed after each step {moved} (step 1 has lr 0); "
         f"launches {launches} (expected {expected}), attention paths {calls}")
+    if preset == "memory_knob":
+        log(f"{tag}: step-1 loss {losses[0]!r} through K3a; forward only on the same "
+            f"weights and batch, through K3a {plain['kernel']!r}, through K3's plain "
+            f"versions {plain['plain']!r}: relative gap {plain['gap']:.3e} [{card}]")
     if moved[1] != 0 or moved[3] == 0:
         raise AssertionError(f"params changed per step {moved}: want none after "
                              "step 1 (lr 0) and some by step 3")
@@ -1019,11 +1110,17 @@ def main() -> int:
               **k3_bounds(K3_TIMED_AT, 2),
               "K4": (k4["bound_ms"], k4["bound_by"]),
               "K5": (k5["bound_ms"], k5["bound_by"])}
+    # no single call computes K2a's or K2b's function: their JSON rows carry
+    # the whole flash backward (delta, K2a, K2b) against SDPA's, by graph replay
+    k2_pair = {"backward_graph_ms": sdpa["K2_graph"][0],
+               "sdpa_backward_graph_ms": sdpa["K2_graph"][1]}
     timed = {"K1": dict(max_abs_err=k1["max_abs_err"], ms=k1["ms"], plain_ms=k1["plain_ms"],
                         library_ms=k1["library_ms"], timed_at=f"bf16 q{list(K1_TIMED_AT)}",
                         graph_ms=k1["graph_ms"], library_graph_ms=k1["library_graph_ms"]),
-             "K2a": dict(k2["K2a"], library_ms=None, timed_at=f"bf16 q{list(K2_TIMED_AT)}"),
-             "K2b": dict(k2["K2b"], library_ms=None, timed_at=f"bf16 q{list(K2_TIMED_AT)}"),
+             "K2a": dict(k2["K2a"], library_ms=None, timed_at=f"bf16 q{list(K2_TIMED_AT)}",
+                         **k2_pair),
+             "K2b": dict(k2["K2b"], library_ms=None, timed_at=f"bf16 q{list(K2_TIMED_AT)}",
+                         **k2_pair),
              "K3a": dict(k3["K3a"], library_ms=sdpa["K3a"], timed_at=f"bf16 q{list(K3_TIMED_AT)}"),
              "K3b": dict(k3["K3b"], library_ms=sdpa["K3b"], timed_at=f"bf16 q{list(K3_TIMED_AT)}"),
              "K4": dict(max_abs_err=k4["max_abs_err"], ms=k4["ms"], plain_ms=k4["plain_ms"],
@@ -1041,7 +1138,9 @@ def main() -> int:
         "bound_ms": bounds[k][0], "bound_by": bounds[k][1],
         "library_ms": timed[k]["library_ms"], "timed_at": timed[k]["timed_at"],
         "ms_by": "one call per CUDA event pair, host work included",
-        **{f: timed[k][f] for f in ("graph_ms", "library_graph_ms") if f in timed[k]}}
+        **{f: timed[k][f] for f in ("graph_ms", "library_graph_ms", "graph_ms_with_delta",
+                                    "backward_graph_ms", "sdpa_backward_graph_ms")
+           if f in timed[k]}}
         for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-// WMMA tile helpers shared by the bf16 attention kernels K2a/K2b
-// (flash_attn_bwd.cu) and K3a/K3b (attn_train.cu), head dim 64.
+// WMMA tile helpers of the bf16 attention kernels K2a/K2b
+// (flash_attn_bwd.cu), head dim 64.
 //
 // A block of 4 warps works on 64-row tiles in shared memory; each warp owns
 // 16 rows. Row strides are padded past the 128-byte bank period (K1's

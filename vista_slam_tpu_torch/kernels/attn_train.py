@@ -34,11 +34,12 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LAUNCHES_FWD = 0  # K3a
 LAUNCHES_BWD = 0  # K3b
 _built: BuiltLibrary | None = None
+_scratch_tokens = 0  # bf16 K3b sums dQ on chip up to this many tokens (from load())
 
 
 def load() -> BuiltLibrary:
     """Build (first call only) and load the kernel library."""
-    global _built
+    global _built, _scratch_tokens
     if _built is None:
         built = build(SOURCE)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
@@ -46,6 +47,8 @@ def load() -> BuiltLibrary:
         built.lib.attn_train_bwd.argtypes = [i32] + [ptr] * 10 + [i32, i32, ctypes.c_float, ptr]
         built.lib.attn_train_fwd.restype = i32
         built.lib.attn_train_bwd.restype = i32
+        built.lib.attn_train_bwd_scratch_tokens.restype = i32
+        _scratch_tokens = built.lib.attn_train_bwd_scratch_tokens()
         _built = built
     return _built
 
@@ -114,13 +117,14 @@ def fused_attention_bwd(q, k, v, do, lse, delta, scale):
     flash_attn._check_bwd(q, k, v, do, lse, delta)  # do, lse and delta
     B, H, N, D = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # bf16: dQ is summed over the key tiles in fp32, in a scratch [B*H,
-    # N rounded up to 64, D] that each slice's block owns (the fp32 kernel
-    # sums in dq itself)
+    # bf16 sums dQ on chip; past the library's _scratch_tokens its fp32
+    # partial sums go from one group of key tiles to the next through a
+    # scratch [B*H, N rounded up to 64, D] that each slice's block owns (the
+    # fp32 kernel sums in dq itself)
+    fn = load().lib.attn_train_bwd
     n_pad = -(-N // 64) * 64
     scratch = (torch.empty((B * H, n_pad, D), dtype=torch.float32, device=q.device)
-               if q.dtype == torch.bfloat16 else None)
-    fn = load().lib.attn_train_bwd
+               if q.dtype == torch.bfloat16 and N > _scratch_tokens else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
