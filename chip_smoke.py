@@ -18,8 +18,14 @@ Phases, each printed on its own lines; any failure exits non-zero:
                shape also the three one call per event pair, host work
                included (cuda_ms, the method of every kernel's "ms",
                "plain_ms" and "library_ms" in the kernels JSON);
-  4. K2      — K2a (dq) and K2b (dk, dv) against their plain versions at
-               the training path's shapes, bf16 and fp32, and their times;
+  4. K2      — K2a (delta and dq) and K2b (dk, dv) against their plain
+               versions at the training path's shapes, bf16 and fp32, K2a's
+               delta against the torch sum, two calls bit-identical, in bf16
+               also at scales -0.125, 0 and 1.0; times one call per event
+               pair and, in bf16, device times by CUDA-graph replay of K2a,
+               K2b and the whole flash backward beside SDPA's flash backward
+               called alone, as a table (any tree measured with this script
+               has its backward timed as that tree computes it);
   5. K5      — the fused bf16-moment AdamW against its plain version at the
                model's largest and smallest eligible leaves, and its times;
   5a. K3     — K3a (fused short-sequence attention forward) and K3b (its
@@ -64,7 +70,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                through make_train_step: loss per step, ms per step, peak
                memory, finite loss and gradients, parameters moved by step
                3, and K1/K2a/K2b/K5 launch counts equal to those derived
-               from the model, with no plain attention;
+               from the model, with no plain attention; before the steps,
+               the step-1 gradients' relative 2-norm gaps to those through
+               K2's plain versions, through K2 (twice) and through SDPA's
+               flash backward (a reading, not gated);
  12. memory-knob slice — configs/train_fast.yaml's 224x224 model at full
                width with its two memory knobs (attn_fused_train,
                int8_fused), batch 8 with 3 supports, 4 steps through
@@ -72,9 +81,9 @@ Phases, each printed on its own lines; any failure exits non-zero:
                bytes beside bf16 moments', and K3a/K3b/K4 launch counts
                equal to those derived from the model, with no K1/K2/K5 and
                no plain or flash attention; before the steps, the first
-               batch's loss forward only through K3a and through K3's
-               plain versions, their relative gap printed beside the
-               launch counts (a reading, not gated).
+               batch's loss forward only through K3a, K1, SDPA and K3's
+               plain versions in bf16 and in fp32, their relative gaps
+               printed beside the launch counts (a reading, not gated).
 Each launch count is set to 0 just before a path runs and read just after.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the port next to
@@ -289,14 +298,70 @@ def attn_bounds(qshape, nk, itemsize: int) -> dict:
     }
 
 
+def torch_delta(do, out):
+    """rowsum(dO * O) in fp32, [B*H, N], as torch ops: what K3b's caller
+    forms, and what a tree before K2a formed delta took for K2."""
+    B, H, N, _ = out.shape
+    return (do.float() * out.float()).sum(-1).reshape(B * H, N)
+
+
+def k2_calls(fa, q, k, v, out, do, lse, scale: float) -> dict:
+    """Closures over one input set, each as the tree this script runs in
+    computes it: "K2a", "K2b", "bwd" (the whole flash backward: delta, K2a,
+    K2b) and their plain versions; "delta" is the one K2b is given. This
+    tree's K2a forms delta itself (returning (dq, delta)); an earlier tree's
+    (a parent measured with this script) took it from its caller, who
+    formed it with torch ops (``torch_delta``): there "K2a" is the kernel
+    alone and "bwd" adds the torch delta."""
+    import inspect
+
+    if "out" in inspect.signature(fa.flash_attention_bwd_dq).parameters:
+        a = (q, k, v, out, do, lse, scale)
+        delta = fa.flash_attention_bwd_dq(*a)[1]
+        b = (q, k, v, do, lse, delta, scale)
+        return {"K2a": lambda: fa.flash_attention_bwd_dq(*a),
+                "K2a_plain": lambda: fa.flash_attention_bwd_dq_plain(*a),
+                "K2b": lambda: fa.flash_attention_bwd_dkv(*b),
+                "K2b_plain": lambda: fa.flash_attention_bwd_dkv_plain(*b),
+                "bwd": lambda: fa.flash_attention_bwd(*a),
+                "bwd_plain": lambda: fa.flash_attention_bwd_plain(*a), "delta": delta}
+    b = (q, k, v, do, lse, torch_delta(do, out), scale)
+    return {"K2a": lambda: fa.flash_attention_bwd_dq(*b),
+            "K2a_plain": lambda: fa.flash_attention_bwd_dq_plain(*b),
+            "K2b": lambda: fa.flash_attention_bwd_dkv(*b),
+            "K2b_plain": lambda: fa.flash_attention_bwd_dkv_plain(*b),
+            "bwd": lambda: fa.flash_attention_bwd(q, k, v, do, lse, torch_delta(do, out),
+                                                  scale),
+            "bwd_plain": lambda: fa.flash_attention_bwd_plain(*b), "delta": b[5]}
+
+
+def k2_errors(got, want) -> dict:
+    """Normwise errors of (dq, dk, dv): max abs error over the plain
+    result's largest magnitude; non-finite output fails."""
+    errs = {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if not g.isfinite().all():
+            raise AssertionError(f"K2 {name}: non-finite")
+        errs[name] = ((g.float() - w.float()).abs().max()
+                      / w.float().abs().max().clamp_min(1e-6)).item()
+    return errs
+
+
 def check_k2(card: str) -> dict:
+    """K2a and K2b against their plain versions at every K2 shape, bf16 and
+    fp32; K2a's delta against the torch sum rowsum(dO * O) (1e-5 normwise);
+    two calls bit-identical; in bf16 at two shapes also scales -0.125, 0
+    and 1.0. Times: one call per event pair (the JSON's "ms") and, in bf16,
+    device times by CUDA-graph replay of K2a, K2b and the whole flash
+    backward beside SDPA's flash backward called alone (which computes its
+    delta itself), printed as a table."""
     import torch
 
     from vista_slam_tpu_torch.kernels import flash_attn as fa
 
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = {"K2a": 0.0, "K2b": 0.0}
-    timed = {}
+    timed, table = {}, []
     for dtype, tname in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
         for qshape, nk in K2_SHAPES:
             B, H, Nq, D = qshape
@@ -307,37 +372,57 @@ def check_k2(card: str) -> dict:
             q, k, v, do = rnd(B, H, Nq, D), rnd(B, H, nk, D), rnd(B, H, nk, D), rnd(B, H, Nq, D)
             scale = D ** -0.5
             out, lse = fa.flash_attention(q, k, v, scale)
-            delta = (do.float() * out.float()).sum(-1).reshape(B * H, Nq)
-            args = (q, k, v, do, lse, delta, scale)
-            dq = fa.flash_attention_bwd_dq(*args)
-            dk, dv = fa.flash_attention_bwd_dkv(*args)
+            calls = k2_calls(fa, q, k, v, out, do, lse, scale)
+            got, again = calls["bwd"](), calls["bwd"]()
             torch.cuda.synchronize()
-            ref = fa.flash_attention_bwd_plain(*args)
-            errs, abs_errs = {}, {}
-            for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-                if not torch.isfinite(got).all():
-                    raise AssertionError(f"K2 {tname} {qshape} {name}: non-finite")
-                e = (got.float() - want.float()).abs().max().item()
-                abs_errs[name] = e
-                errs[name] = e / max(want.float().abs().max().item(), 1e-6)
-            ms_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq(*args))
-            ms_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv(*args))
-            plain_dq = cuda_ms(lambda: fa.flash_attention_bwd_dq_plain(*args))
-            plain_dkv = cuda_ms(lambda: fa.flash_attention_bwd_dkv_plain(*args))
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"K2 {tname} {qshape}: two calls differ")
+            want_delta = torch_delta(do, out)
+            delta_err = ((calls["delta"] - want_delta).abs().max()
+                         / want_delta.abs().max()).item()
+            ref = calls["bwd_plain"]()
+            errs = k2_errors(got, ref)
+            abs_errs = {n: (g.float() - w.float()).abs().max().item()
+                        for n, g, w in zip(("dq", "dk", "dv"), got, ref)}
+            ms_dq, ms_dkv = cuda_ms(calls["K2a"]), cuda_ms(calls["K2b"])
+            plain_dq, plain_dkv = cuda_ms(calls["K2a_plain"]), cuda_ms(calls["K2b_plain"])
             tol = K2_TOL[tname]
             log(f"K2 {tname} q{list(qshape)} nk={nk}: normwise err "
                 + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
-                + f" (tol {tol:g}); K2a {ms_dq:.4f} ms vs plain {plain_dq:.4f} ms, "
-                f"K2b {ms_dkv:.4f} ms vs plain {plain_dkv:.4f} ms [{card}]")
-            if max(errs.values()) > tol:
-                raise AssertionError(f"K2 {tname} {qshape}: errors {errs} over {tol}")
-            if dtype == torch.bfloat16:
-                worst["K2a"] = max(worst["K2a"], abs_errs["dq"])
-                worst["K2b"] = max(worst["K2b"], abs_errs["dk"], abs_errs["dv"])
-                if qshape == K2_TIMED_AT:
-                    timed = {"K2a": (ms_dq, plain_dq), "K2b": (ms_dkv, plain_dkv)}
+                + f" (tol {tol:g}), delta {delta_err:.2e} (tol 1e-5), two calls "
+                f"bit-identical; one call per event pair: K2a {ms_dq:.4f} ms vs plain "
+                f"{plain_dq:.4f} ms, K2b {ms_dkv:.4f} ms vs plain {plain_dkv:.4f} ms [{card}]")
+            if max(errs.values()) > tol or delta_err > 1e-5:
+                raise AssertionError(f"K2 {tname} {qshape}: errors {errs}, delta "
+                                     f"{delta_err} over tolerance")
+            if dtype != torch.bfloat16:
+                continue
+            worst["K2a"] = max(worst["K2a"], abs_errs["dq"])
+            worst["K2b"] = max(worst["K2b"], abs_errs["dk"], abs_errs["dv"])
+            g = {name: graph_ms(calls[name]) for name in ("K2a", "K2b", "bwd")}
+            g["sdpa"] = graph_ms(sdpa_backward(q, k, v, do, scale))
+            b = attn_bounds(qshape, nk, 2)
+            table.append(f"| q{list(qshape)} nk={nk} | {g['K2a']:.4f} | {g['K2b']:.4f} | "
+                         f"{g['bwd']:.4f} | {g['sdpa']:.4f} | {g['bwd'] / g['sdpa']:.3f} | "
+                         f"{b['K2a'][0]:.4f} | {b['K2b'][0]:.4f} |")
+            if qshape == K2_TIMED_AT:
+                timed = {"K2a": (ms_dq, plain_dq, g["K2a"]), "K2b": (ms_dkv, plain_dkv, g["K2b"])}
+            if nk in (769, 260):  # the 16-wide tails and Nq != Nk, at any scale
+                for other in (-0.125, 0.0, 1.0):
+                    o2, lse2 = fa.flash_attention(q, k, v, other)
+                    c2 = k2_calls(fa, q, k, v, o2, do, lse2, other)
+                    e2 = k2_errors(c2["bwd"](), c2["bwd_plain"]())
+                    log(f"K2 bf16 q{list(qshape)} nk={nk} scale {other:g}: normwise err "
+                        + ", ".join(f"{n} {e:.2e}" for n, e in e2.items())
+                        + f" (tol {tol:g}) [{card}]")
+                    if max(e2.values()) > tol:
+                        raise AssertionError(f"K2 scale {other} {qshape}: errors {e2}")
+    log("K2, bf16 device ms by CUDA-graph replay (the whole backward: delta, K2a, K2b "
+        f"as this tree computes them), SDPA's flash backward called alone [{card}]:\n"
+        "| shape | K2a | K2b | whole backward | SDPA flash bwd | whole/SDPA | K2a bound "
+        "| K2b bound |\n|---|---|---|---|---|---|---|---|\n" + "\n".join(table))
     return {name: {"max_abs_err": worst[name], "ms": timed[name][0],
-                   "plain_ms": timed[name][1]} for name in worst}
+                   "plain_ms": timed[name][1], "graph_ms": timed[name][2]} for name in worst}
 
 
 def time_sdpa(card: str) -> dict:
@@ -347,12 +432,15 @@ def time_sdpa(card: str) -> dict:
     beside SDPA's backward at K2's shape, the port's whole flash backward
     timed the same way (torch.autograd.grad through FlashAttention: delta,
     K2a and K2b), and both again by CUDA-graph replay (delta, K2a and K2b
-    against SDPA's flash backward called alone)."""
+    against SDPA's flash backward called alone). That the autograd pair
+    computes one function: the backend SDPA picks there, and both
+    gradients' normwise errors against K2's plain versions on K1's out."""
     import torch
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend
 
     from vista_slam_tpu_torch.kernels import flash_attn as fa
-    from vista_slam_tpu_torch.ops.attention import FlashAttention, _delta
+    from vista_slam_tpu_torch.ops.attention import FlashAttention
 
     out = {}
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -369,18 +457,26 @@ def time_sdpa(card: str) -> dict:
         log(f"SDPA (yardstick, not on the path) bf16 q{list(qshape)}: forward "
             f"{fwd:.4f} ms, backward {bwd:.4f} ms [{card}]")
         if tag == "K2":
-            of = FlashAttention.apply(qg, kg, vg, D ** -0.5)
+            scale = D ** -0.5
+            of = FlashAttention.apply(qg, kg, vg, scale)
             port = cuda_ms(lambda: torch.autograd.grad(of, (qg, kg, vg), do,
                                                        retain_graph=True))
             out["K2_port"] = port
+            o_p, lse_p = fa.flash_attention(q, k, v, scale)
+            calls = k2_calls(fa, q, k, v, o_p, do, lse_p, scale)
+            want = calls["bwd_plain"]()
+            errs = {name: k2_errors(torch.autograd.grad(y, (qg, kg, vg), do,
+                                                        retain_graph=True), want)
+                    for name, y in (("SDPA", o), ("port", of))}
+            backend = SDPBackend(torch._fused_sdp_choice(qg, kg, vg)).name
             log(f"K2 like for like, bf16 q{list(qshape)}, torch.autograd.grad with host "
                 f"work included: the port's flash backward (delta, K2a, K2b) {port:.4f} "
-                f"ms vs SDPA's backward {bwd:.4f} ms ({port / bwd:.2f}x) [{card}]")
+                f"ms vs SDPA's backward {bwd:.4f} ms ({port / bwd:.2f}x); SDPA's backend "
+                f"{backend}; normwise errors against K2's plain versions on K1's out: "
+                + "; ".join(f"{name} " + ", ".join(f"{n} {x:.2e}" for n, x in by.items())
+                            for name, by in errs.items()) + f" [{card}]")
             # device time: the same two backwards by CUDA-graph replay
-            scale = D ** -0.5
-            o_p, lse_p = fa.flash_attention(q, k, v, scale)
-            port_g = graph_ms(lambda: fa.flash_attention_bwd(q, k, v, do, lse_p,
-                                                             _delta(do, o_p), scale))
+            port_g = graph_ms(calls["bwd"])
             sdpa_g = graph_ms(sdpa_backward(q, k, v, do, scale))
             out["K2_graph"] = (port_g, sdpa_g)
             log(f"K2 like for like, bf16 q{list(qshape)}, device ms by CUDA-graph replay: "
@@ -390,18 +486,24 @@ def time_sdpa(card: str) -> dict:
             "K3a": out["K3"][0], "K3b": out["K3"][1]}
 
 
-def sdpa_backward(q, k, v, do, scale: float):
+def sdpa_backward(q, k, v, do, scale: float, out=None, lse=None):
     """SDPA's flash-attention backward alone, as one call for graph replay:
     aten's op, called directly after its forward has run once here. It
     computes rowsum(dO * O) itself, so the port's like-for-like time is
-    delta + its backward kernels. A yardstick, never on the port's path."""
+    delta + its backward kernels. With ``out`` and ``lse`` (K1's, lse
+    [B*H, Nq] in natural log as FlashAttention-2's) it differentiates
+    through them instead of its own forward's. A yardstick, never on the
+    port's path."""
     import torch
 
     fwd = torch.ops.aten._scaled_dot_product_flash_attention(q, k, v, 0.0, False, False,
                                                              scale=scale)
-    out, lse, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    o, logsumexp, cum_q, cum_k, max_q, max_k, seed, offset = fwd[:8]
+    if out is not None:
+        o, logsumexp = out, logsumexp.clone()
+        logsumexp[..., :q.shape[2]] = lse.view(*q.shape[:3])
     return lambda: torch.ops.aten._scaled_dot_product_flash_attention_backward(
-        do, q, k, v, out, lse, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset,
+        do, q, k, v, o, logsumexp, cum_q, cum_k, max_q, max_k, 0.0, False, seed, offset,
         scale=scale)
 
 
@@ -496,7 +598,6 @@ def check_k3(card: str) -> dict:
     import torch.nn.functional as F
 
     from vista_slam_tpu_torch.kernels import attn_train as at
-    from vista_slam_tpu_torch.ops.attention import _delta
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     worst = {"K3a": 0.0, "K3b": 0.0}
@@ -508,8 +609,7 @@ def check_k3(card: str) -> dict:
                            for _ in range(4))
             scale = D ** -0.5
             out, lse = at.fused_attention_fwd(q, k, v, scale)
-            delta = (do.float() * out.float()).sum(-1).reshape(B * H, N)
-            args = (q, k, v, do, lse, delta, scale)
+            args = (q, k, v, do, lse, torch_delta(do, out), scale)
             grads = at.fused_attention_bwd(*args)
             again = (*at.fused_attention_fwd(q, k, v, scale), *at.fused_attention_bwd(*args))
             torch.cuda.synchronize()
@@ -540,7 +640,7 @@ def check_k3(card: str) -> dict:
                 g = {"K3a": graph_ms(lambda: at.fused_attention_fwd(q, k, v, scale)),
                      "K3b": graph_ms(lambda: at.fused_attention_bwd(*args)),
                      "delta_K3b": graph_ms(lambda: at.fused_attention_bwd(
-                         q, k, v, do, lse, _delta(do, out), scale)),
+                         q, k, v, do, lse, torch_delta(do, out), scale)),
                      "sdpa_fwd": graph_ms(lambda: F.scaled_dot_product_attention(
                          q, k, v, scale=scale)),
                      "sdpa_bwd": graph_ms(sdpa_backward(q, k, v, do, scale))}
@@ -923,29 +1023,96 @@ def check_train_agree(card: str, preset: str) -> None:
         raise AssertionError(f"train-agree {preset}: card and CPU disagree: {errs}")
 
 
-def plain_route_losses(model, batch, n_support: int) -> dict:
+def route_losses(model, batch, n_support: int) -> dict:
     """The memory-knob loss of one batch, forward only (no gradient), on the
-    model's current weights: once through K3a and once with
-    FusedTrainAttention routed to K3's plain versions, and their relative
-    gap. Not gated: a random-weight network in bf16 amplifies rounding, so
-    the gap is a reading for PERF.md, watched from run to run."""
+    model's current weights, with FusedTrainAttention's forward routed
+    through K3a, K1 (the same function), SDPA, K3's plain version, and K3's
+    plain version in fp32 (inputs cast up, output cast back); each route's
+    relative gap to the two plain ones. Not gated: a random-weight network
+    in bf16 amplifies rounding, so the gaps are readings for PERF.md that
+    tell rounding (K3a near K1 and SDPA) from a bias (K3a alone far off)."""
     import torch
+    import torch.nn.functional as F
 
     from vista_slam_tpu_torch.kernels import attn_train as at
+    from vista_slam_tpu_torch.kernels import flash_attn as fa
     from vista_slam_tpu_torch.train import finetune
     from vista_slam_tpu_torch.train.step import batch_to, make_loss_fn
 
+    def plain_fp32(q, k, v, scale):
+        out, lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), scale)
+        return out.to(q.dtype), lse
+
+    routes = {"K3a": at.fused_attention_fwd, "K1": fa.flash_attention,
+              "SDPA": lambda q, k, v, scale: (
+                  F.scaled_dot_product_attention(q, k, v, scale=scale), None),
+              "plain": at.fused_attention_fwd_plain, "plain_fp32": plain_fp32}
     loss_fn, b = make_loss_fn(model, n_support), batch_to(batch, "cuda")
-    out = {}
+    losses, kernel = {}, at.fused_attention_fwd
     with torch.no_grad():
-        out["kernel"] = loss_fn(b, finetune.TRAIN["alpha_init"])[0].item()
-        fwd, at.fused_attention_fwd = at.fused_attention_fwd, at.fused_attention_fwd_plain
         try:
-            out["plain"] = loss_fn(b, finetune.TRAIN["alpha_init"])[0].item()
+            for name, fwd in routes.items():
+                at.fused_attention_fwd = fwd
+                losses[name] = loss_fn(b, finetune.TRAIN["alpha_init"])[0].item()
         finally:
-            at.fused_attention_fwd = fwd
-    out["gap"] = abs(out["kernel"] - out["plain"]) / abs(out["plain"])
-    return out
+            at.fused_attention_fwd = kernel
+    gaps = {ref: {name: abs(x - losses[ref]) / abs(losses[ref]) for name, x in losses.items()
+                  if name != ref} for ref in ("plain", "plain_fp32")}
+    return {"losses": losses, "gaps": gaps}
+
+
+def grad_gaps(model, batch, n_support: int) -> dict:
+    """The highres step-1 gradient of one batch (no update), as one fp32
+    vector, through K2's plain versions (the reference), through K2a/K2b
+    twice, and through SDPA's flash backward (aten's op) on K1's out and
+    lse, a second rounding of the same backward; each one's relative 2-norm
+    gap to the plain route's. The rest of the step runs torch's
+    deterministic algorithms, so K2's gap to itself reads 0 and the others
+    are attention's alone (aten's flash backward has no deterministic form
+    and warns). Not gated: readings for PERF.md."""
+    import torch
+
+    from vista_slam_tpu_torch.kernels import flash_attn as fa
+    from vista_slam_tpu_torch.ops.attention import FlashAttention
+    from vista_slam_tpu_torch.train import finetune
+    from vista_slam_tpu_torch.train.step import batch_to, make_loss_fn
+
+    def sdpa_route(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*sdpa_backward(q, k, v, do.contiguous(), ctx.scale, out, lse)()[:3], None)
+
+    loss_fn, b = make_loss_fn(model, n_support), batch_to(batch, "cuda")
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def grad() -> torch.Tensor:
+        loss = loss_fn(b, finetune.TRAIN["alpha_init"])[0]
+        g = torch.autograd.grad(loss, params, allow_unused=True)
+        return torch.cat([x.float().flatten() for x in g if x is not None])
+
+    kernels, backward = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv), \
+        FlashAttention.backward
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        fa.flash_attention_bwd_dq = fa.flash_attention_bwd_dq_plain
+        fa.flash_attention_bwd_dkv = fa.flash_attention_bwd_dkv_plain
+        ref = grad()
+        fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = kernels
+
+        def gap(g: torch.Tensor, to: torch.Tensor = ref) -> float:
+            return ((g - to).norm() / ref.norm()).item()
+
+        k2 = grad()
+        gaps = {"K2": gap(k2), "K2 vs K2 again": gap(grad(), k2)}
+        del k2
+        FlashAttention.backward = staticmethod(sdpa_route)
+        gaps["SDPA bwd on K1's out"] = gap(grad())
+    finally:
+        fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = kernels
+        FlashAttention.backward = staticmethod(backward)
+        torch.use_deterministic_algorithms(deterministic[0], warn_only=deterministic[1])
+    return gaps
 
 
 def run_train_slice(card: str, preset: str) -> dict:
@@ -995,7 +1162,13 @@ def run_train_slice(card: str, preset: str) -> dict:
     expected_calls = {"flash": 0, "plain": 0, "fused": 0, route: per_step * TRAIN_STEPS}
     first = {n: p.detach().clone() for n, p in model.named_parameters()}
     if preset == "memory_knob":
-        plain = plain_route_losses(model, batches[0], S)
+        routes = route_losses(model, batches[0], S)
+    else:
+        gaps = grad_gaps(model, batches[0], S)
+        log(f"{tag}: step-1 gradients at full width in bf16, relative 2-norm gap to "
+            "the route through K2's plain versions: "
+            + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items()) + f" [{card}]")
+        torch.cuda.empty_cache()
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1022,8 +1195,12 @@ def run_train_slice(card: str, preset: str) -> dict:
         f"launches {launches} (expected {expected}), attention paths {calls}")
     if preset == "memory_knob":
         log(f"{tag}: step-1 loss {losses[0]!r} through K3a; forward only on the same "
-            f"weights and batch, through K3a {plain['kernel']!r}, through K3's plain "
-            f"versions {plain['plain']!r}: relative gap {plain['gap']:.3e} [{card}]")
+            f"weights and batch, by route: {routes['losses']}; relative gap to K3's "
+            "plain versions: " + ", ".join(f"{n} {g:.3e}" for n, g in
+                                           routes["gaps"]["plain"].items())
+            + "; to K3's plain versions in fp32: " + ", ".join(
+                f"{n} {g:.3e}" for n, g in routes["gaps"]["plain_fp32"].items())
+            + f" [{card}]")
     if moved[1] != 0 or moved[3] == 0:
         raise AssertionError(f"params changed per step {moved}: want none after "
                              "step 1 (lr 0) and some by step 3")

@@ -11,15 +11,7 @@ import torch
 
 from vista_slam_tpu_torch.kernels import flash_attn
 from vista_slam_tpu_torch.ops import attention
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run many small torch ops: one intra-op thread keeps them
-    from oversubscribing the CPU when test files run in parallel processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _qkv(rng, b, h, nq, nk, d=64):
@@ -102,6 +94,37 @@ def test_flash_autograd_gradcheck():
                for s in ((1, 2, 3, 16), (1, 2, 4, 16), (1, 2, 4, 16)))
     assert torch.autograd.gradcheck(
         lambda q_, k_, v_: attention.FlashAttention.apply(q_, k_, v_, 0.125), (q, k, v))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,h,nq,nk", [(1, 2, 197, 197), (1, 2, 130, 260)],
+                         ids=["ragged", "nq_ne_nk"])
+def test_flash_bwd_dq_plain_delta_matches_jax_rowsum(b, h, nq, nk, dtype):
+    """The plain K2a's delta is rowsum(dO * O) as the JAX package's
+    _flash_bwd forms it (vista_slam_tpu/ops/pallas/flash.py:221: padded,
+    cast to fp32, multiplied, summed), 1e-6 normwise (fp32 sums in another
+    order)."""
+    import jax.numpy as jnp
+
+    from vista_slam_tpu.ops.pallas import flash
+
+    rng = np.random.default_rng(nq + 7 * nk + len(dtype))
+    q, k, v = _qkv(rng, b, h, nq, nk)
+    out, do = (rng.standard_normal(q.shape).astype(np.float32) for _ in range(2))
+    jdt, tdt = jnp.dtype(dtype), getattr(torch, dtype)
+    nq_pad = -(-nq // flash.DEFAULT_BLOCK_Q) * flash.DEFAULT_BLOCK_Q
+    dof = flash._pad_to(jnp.asarray(do, jdt).reshape(b * h, nq, 64), nq_pad, 1)
+    of = flash._pad_to(jnp.asarray(out, jdt).reshape(b * h, nq, 64), nq_pad, 1)
+    want = np.asarray(jnp.sum(dof.astype(jnp.float32) * of.astype(jnp.float32),
+                              axis=-1))[:, :nq]
+
+    tq, tk, tv, tout, tdo = (torch.from_numpy(x).to(tdt) for x in (q, k, v, out, do))
+    _, lse = flash_attn.flash_attention(tq, tk, tv, 0.125)
+    dq, delta = flash_attn.flash_attention_bwd_dq(tq, tk, tv, tout, tdo, lse, 0.125)
+    assert delta.dtype == torch.float32 and delta.shape == (b * h, nq)
+    _assert_close(delta, want, 1e-6 * np.abs(want).max())
+    assert dq.shape == tq.shape and dq.dtype == tdt
+    assert flash_attn.LAUNCHES_DQ == 0
 
 
 def test_mha_flash_path_is_differentiable_and_counts_once():
@@ -191,23 +214,74 @@ def test_flash_kernel_takes_any_scale_on_card(cuda_device, scale):
         _assert_close(lse.cpu(), ref_lse.cpu().numpy(), 1e-3)
 
 
+# (b, h, nq, nk) of K2 on the training path (chip_smoke.K2_SHAPES): encoder
+# main views, encoder supports, decoder pairs, and Nq != Nk
+_K2_CARD_SHAPES = [(2, 16, 768, 768), (6, 16, 768, 768), (12, 12, 769, 769),
+                   (2, 3, 130, 260)]
+
+
+def _k2_inputs(gen, dtype, b, h, nq, nk, scale):
+    device = gen.device
+    q, k, v, do = (torch.randn(s, generator=gen, device=device).to(dtype)
+                   for s in ((b, h, nq, 64), (b, h, nk, 64), (b, h, nk, 64),
+                             (b, h, nq, 64)))
+    out, lse = flash_attn.flash_attention(q, k, v, scale)
+    return q, k, v, out, do, lse
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
 def test_flash_backward_kernels_match_plain_on_card(cuda_device, dtype, tol):
-    """K2a/K2b against their plain versions, normwise."""
+    """K2a/K2b against their plain versions, normwise, at the training
+    path's shapes; K2a's delta against the torch sum rowsum(dO * O) (1e-5
+    normwise: both sum fp32 products, in another order)."""
     gen = torch.Generator(device=cuda_device).manual_seed(1)
-    for (b, h, nq, nk) in [(12, 12, 769, 769), (2, 3, 130, 260)]:
-        q, k, v, do = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
-                       for s in ((b, h, nq, 64), (b, h, nk, 64), (b, h, nk, 64),
-                                 (b, h, nq, 64)))
-        out, lse = flash_attn.flash_attention(q, k, v, 0.125)
-        delta = (do.float() * out.float()).sum(-1).reshape(b * h, nq)
+    for (b, h, nq, nk) in _K2_CARD_SHAPES:
+        q, k, v, out, do, lse = _k2_inputs(gen, dtype, b, h, nq, nk, 0.125)
         launches = (flash_attn.LAUNCHES_DQ, flash_attn.LAUNCHES_DKV)
-        got = flash_attn.flash_attention_bwd(q, k, v, do, lse, delta, 0.125)
+        dq, delta = flash_attn.flash_attention_bwd_dq(q, k, v, out, do, lse, 0.125)
+        dk, dv = flash_attn.flash_attention_bwd_dkv(q, k, v, do, lse, delta, 0.125)
         torch.cuda.synchronize()
         assert (flash_attn.LAUNCHES_DQ, flash_attn.LAUNCHES_DKV) == (
             launches[0] + 1, launches[1] + 1)
-        want = flash_attn.flash_attention_bwd_plain(q, k, v, do, lse, delta, 0.125)
-        for g, w in zip(got, want):
+        want_delta = flash_attn.delta_plain(do, out)
+        _assert_close(delta.cpu(), want_delta.cpu().numpy(),
+                      1e-5 * want_delta.abs().max().item())
+        want = flash_attn.flash_attention_bwd_plain(q, k, v, out, do, lse, 0.125)
+        for g, w in zip((dq, dk, dv), want):
             w = w.float().cpu().numpy()
             _assert_close(g.float().cpu(), w, tol * np.abs(w).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [-0.125, 0.0, 1.0])
+def test_flash_backward_takes_any_scale_on_card(cuda_device, scale):
+    """K2a/K2b in bf16 take any scale, as the TPU kernels do: zero,
+    negative and large (K1's lesson), against their plain versions on the
+    same lse, with the 16-wide tails (769 tokens) and Nq != Nk."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    for (b, h, nq, nk) in [(1, 2, 769, 769), (2, 3, 130, 260)]:
+        args = _k2_inputs(gen, torch.bfloat16, b, h, nq, nk, scale)
+        got = flash_attn.flash_attention_bwd(*args, scale)
+        want = flash_attn.flash_attention_bwd_plain(*args, scale)
+        for g, w in zip(got, want):
+            w = w.float().cpu().numpy()
+            assert np.isfinite(w).all()
+            _assert_close(g.float().cpu(), w, 2e-2 * np.abs(w).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_backward_kernels_are_deterministic_on_card(cuda_device, dtype):
+    """Two calls of K2a and K2b give bit-identical delta, dq, dk and dv:
+    every output tile is written by one block, with no atomics."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for (b, h, nq, nk) in [(12, 12, 769, 769), (2, 3, 130, 260)]:
+        q, k, v, out, do, lse = _k2_inputs(gen, dtype, b, h, nq, nk, 0.125)
+        runs = []
+        for _ in range(2):
+            dq, delta = flash_attn.flash_attention_bwd_dq(q, k, v, out, do, lse, 0.125)
+            runs.append((dq, delta, *flash_attn.flash_attention_bwd_dkv(
+                q, k, v, do, lse, delta, 0.125)))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*runs))

@@ -12,16 +12,7 @@ import torch
 
 from vista_slam_tpu_torch.kernels import attn_train
 from vista_slam_tpu_torch.ops import attention
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread keeps these small torch ops from oversubscribing
-    the CPU when test files run in parallel processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 def _qkv(seed, b, h, n, d=64):

@@ -5,6 +5,7 @@ sees no CUDA device. Run there with
 
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 
 @pytest.mark.cuda

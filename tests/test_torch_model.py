@@ -23,6 +23,8 @@ from vista_slam_tpu_torch.models.convert import state_dict_from_jax
 from vista_slam_tpu_torch.models.heads import (PoseHead, svd_orthogonalize,
                                                svd_orthogonalize_stable)
 from vista_slam_tpu_torch.models.sta import STA, STAConfig
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 TINY = dict(img_size=(64, 64), enc_dim=64, enc_depth=2, enc_heads=1,
             dec_dim=128, dec_depth=4, dec_heads=2, mlp_ratio=2, use_flash=True)

@@ -14,6 +14,8 @@ from vista_slam_tpu.utils import geometry as jgeom
 from vista_slam_tpu.utils import image_ops as jimg
 from vista_slam_tpu_torch.ops import linalg, rope2d, sim3
 from vista_slam_tpu_torch.utils import geometry, image_ops
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 ATOL = 1e-5
 

@@ -14,6 +14,8 @@ from vista_slam_tpu.ops import sim3 as jsim3
 from vista_slam_tpu.slam.pgo import PGOConfig as JPGOConfig
 from vista_slam_tpu.slam.pgo import optimize_pose_graph as joptimize
 from vista_slam_tpu_torch.slam.pgo import PGOConfig, optimize_pose_graph
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 N_PAD, E_PAD = 48, 64  # <= 32 optimised nodes in every case: one window bucket
 

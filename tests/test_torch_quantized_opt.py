@@ -20,22 +20,13 @@ import jax.numpy as jnp
 from vista_slam_tpu_torch.kernels import adamw
 from vista_slam_tpu_torch.train import step
 from vista_slam_tpu_torch.train.quantized_opt import ChainAdamW, FusedInt8Leaf, QMoment
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 HP = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.05)
 # share of int8 codes allowed one step apart: XLA's and torch's exp/log on
 # the CPU differ in the last ulp, so a code whose real value sits within an
 # ulp of a half-integer can round the other way
 CODE_FRACTION = 1e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread keeps these small torch ops from oversubscribing
-    the CPU when test files run in parallel processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _finite(*arrays):

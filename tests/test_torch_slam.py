@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from vista_slam_tpu_torch.datasets.synthetic_scene import BoxScene, orbit_trajectory
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODEL = dict(img_size=[64, 64], enc_dim=64, enc_depth=1, enc_heads=1, dec_dim=64,

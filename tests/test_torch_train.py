@@ -24,6 +24,7 @@ from vista_slam_tpu_torch.models.convert import jax_param_ndims, state_dict_from
 from vista_slam_tpu_torch.models.sta import STA, STAConfig
 from vista_slam_tpu_torch.train import losses, step
 from vista_slam_tpu_torch.train.quantized_opt import FusedBf16Leaf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 TINY = dict(img_size=(32, 32), patch_size=4, enc_dim=64, enc_depth=1, enc_heads=1,
             dec_dim=64, dec_depth=2, dec_heads=1, mlp_ratio=2, use_flash=True,
@@ -34,16 +35,6 @@ S, B = 3, 2  # neighbor_num 1 (two neighbours) + loop_num 1; batch 2
 # over the JAX copies
 TIED_BIAS = {"downstream_head_pts.dpt.act_postprocess.0.1.bias": ("act0_up", 4),
              "downstream_head_pts.dpt.act_postprocess.1.1.bias": ("act1_up", 2)}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tests run many small torch ops: one intra-op thread keeps them
-    from oversubscribing the CPU when test files run in parallel processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _finite(*arrays):

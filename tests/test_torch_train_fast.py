@@ -29,20 +29,11 @@ from vista_slam_tpu_torch.models.sta import STA, STAConfig
 from vista_slam_tpu_torch.ops import attention
 from vista_slam_tpu_torch.train import step
 from vista_slam_tpu_torch.train.quantized_opt import FusedInt8Leaf
+from torch_threads import one_torch_thread  # noqa: F401 (autouse fixture)
 
 FUSED = dict(TINY, use_flash=False, attn_fused_train=True)
 OPT = dict(lr=1e-2, warmup_steps=2, total_steps=20, min_lr=1e-4, weight_decay=0.05,
            clip=1.0, state_dtype="int8_fused")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread keeps these small torch ops from oversubscribing
-    the CPU when test files run in parallel processes."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")

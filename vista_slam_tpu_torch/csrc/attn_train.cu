@@ -292,38 +292,6 @@ constexpr int DQ_TILE_F4 = TILE * D / 4;  // float4s of one fp32 dQ tile
 constexpr int SMEM_BWD =
     (3 * BWD_WG + 2 * BWD_QG) * TILE_BYTES + BWD_QG * TILE * D * 4 + 1024;
 
-__device__ __forceinline__ void wg_barrier(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG_THREADS) : "memory");
-}
-
-// The warpgroup's m64n64 accumulator a * mul, rounded to bf16 -> rows
-// [row0, row0 + 64) of a row-major [n, 64] matrix (rows < n only), staged
-// through the warpgroup's swizzled tile at stage and stored 16 bytes a thread
-__device__ __forceinline__ void store_acc(const float (&a)[32], float mul,
-                                          unsigned char* stage, __nv_bfloat16* dst,
-                                          int row0, int n, int tid, int bar) {
-  const int t = tid % 4;
-  const int r0 = tid / 32 * 16 + (tid % 32) / 4;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    *reinterpret_cast<uint32_t*>(stage + swz(r0, i) + 4 * t) =
-        pack_bf16(a[4 * i] * mul, a[4 * i + 1] * mul);
-    *reinterpret_cast<uint32_t*>(stage + swz(r0 + 8, i) + 4 * t) =
-        pack_bf16(a[4 * i + 2] * mul, a[4 * i + 3] * mul);
-  }
-  wg_barrier(bar);
-#pragma unroll
-  for (int i = 0; i < TILE * 8 / WG_THREADS; ++i) {
-    const int c = tid + i * WG_THREADS;
-    const int r = c >> 3, ch = c & 7;
-    if (row0 + r < n) {
-      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + ch * 8) =
-          *reinterpret_cast<const uint4*>(stage + swz(r, ch));
-    }
-  }
-  wg_barrier(bar);  // the stage may be written again
-}
-
 // One warpgroup's work on one (key tile, query tile) pair: dK and dV
 // accumulate in registers, dS K is added into the query tile's fp32 dQ sum
 // (accumulator order, at sdq). kvalid: real keys of the tile; q0: the

@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the bf16 attention kernels K1
-// (flash_attn_fwd.cu) and K3a/K3b (attn_train.cu), head dim 64.
+// (flash_attn_fwd.cu), K2a/K2b (flash_attn_bwd.cu) and K3a/K3b
+// (attn_train.cu), head dim 64.
 //
 // Tiles are [64, 64] bf16: one 128-byte row per token, laid out with the
 // 128-byte XOR swizzle (16-byte chunk index XOR row index mod 8) that the
@@ -183,6 +184,40 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// named barrier id over one warpgroup's 128 threads (id 0 is __syncthreads)
+__device__ __forceinline__ void wg_barrier(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(WG_THREADS) : "memory");
+}
+
+// The warpgroup's m64n64 accumulator a * mul, rounded to bf16 -> rows
+// [row0, row0 + 64) of a row-major [n, 64] matrix (rows < n only), staged
+// through the warpgroup's swizzled tile at stage and stored 16 bytes a
+// thread; tid: the thread's index in the warpgroup, bar: its named barrier
+__device__ __forceinline__ void store_acc(const float (&a)[32], float mul,
+                                          unsigned char* stage, __nv_bfloat16* dst,
+                                          int row0, int n, int tid, int bar) {
+  const int t = tid % 4;
+  const int r0 = tid / 32 * 16 + (tid % 32) / 4;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    *reinterpret_cast<uint32_t*>(stage + swz(r0, i) + 4 * t) =
+        pack_bf16(a[4 * i] * mul, a[4 * i + 1] * mul);
+    *reinterpret_cast<uint32_t*>(stage + swz(r0 + 8, i) + 4 * t) =
+        pack_bf16(a[4 * i + 2] * mul, a[4 * i + 3] * mul);
+  }
+  wg_barrier(bar);
+#pragma unroll
+  for (int i = 0; i < TILE * 8 / WG_THREADS; ++i) {
+    const int c = tid + i * WG_THREADS;
+    const int r = c >> 3, ch = c & 7;
+    if (row0 + r < n) {
+      *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * D + ch * 8) =
+          *reinterpret_cast<const uint4*>(stage + swz(r, ch));
+    }
+  }
+  wg_barrier(bar);  // the stage may be written again
 }
 
 }  // namespace

@@ -72,7 +72,8 @@ def fused_attention_bwd_plain(q, k, v, do, lse, delta, scale):
     exp(S - lse); dV = (P cast to do's dtype)^T dO; dS = P * (dO V^T -
     delta) cast to q's dtype; dQ = dS K * scale, dK = dS^T Q * scale, fp32
     accumulation), the rounding points of the TPU kernel."""
-    return flash_attn.flash_attention_bwd_plain(q, k, v, do, lse, delta, scale)
+    return (flash_attn.dq_from_delta_plain(q, k, v, do, lse, delta, scale),
+            *flash_attn.flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale))
 
 
 def _check(q, k, v) -> None:
@@ -114,7 +115,7 @@ def fused_attention_bwd(q, k, v, do, lse, delta, scale):
     if all(t.device.type == "cpu" for t in (q, k, v, do, lse, delta)):
         return fused_attention_bwd_plain(q, k, v, do, lse, delta, scale)
     _check(q, k, v)
-    flash_attn._check_bwd(q, k, v, do, lse, delta)  # do, lse and delta
+    flash_attn._check_bwd(q, k, v, {"do": do}, {"lse": lse, "delta": delta})
     B, H, N, D = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # bf16 sums dQ on chip; past the library's _scratch_tokens its fp32

@@ -11,13 +11,16 @@ answers that.
   q [B, H, Nq, 64], k/v [B, H, Nk, 64], bf16 or fp32, contiguous, on
   16-byte boundaries;
   out [B, H, Nq, 64] in q's dtype; lse fp32 [B*H, Nq].
-``flash_attention_bwd(q, k, v, do, lse, delta, scale)`` returns
-``(dq, dk, dv)`` in the inputs' dtype, with delta = rowsum(do * out) fp32
-[B*H, Nq] computed by the caller (ops/attention.py).
-Tensors on the CPU go to ``flash_attention_plain`` / ``flash_attention_bwd_plain``,
-the same functions in plain PyTorch. CUDA tensors go to the kernels or
-raise; there is no fallback. ``LAUNCHES`` (K1), ``LAUNCHES_DQ`` (K2a) and
-``LAUNCHES_DKV`` (K2b) count kernel launches (and nothing else).
+``flash_attention_bwd_dq(q, k, v, out, do, lse, scale)`` (K2a) returns
+``(dq, delta)``: K2a forms delta = rowsum(do * out) in fp32 [B*H, Nq]
+itself, as ``_flash_bwd`` does at flash.py:221;
+``flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale)`` (K2b) returns
+``(dk, dv)``; ``flash_attention_bwd(q, k, v, out, do, lse, scale)`` runs
+both and returns ``(dq, dk, dv)`` in the inputs' dtype.
+Tensors on the CPU go to the ``*_plain`` versions, the same functions in
+plain PyTorch. CUDA tensors go to the kernels or raise; there is no
+fallback. ``LAUNCHES`` (K1), ``LAUNCHES_DQ`` (K2a) and ``LAUNCHES_DKV``
+(K2b) count kernel launches (and nothing else).
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ def load_bwd() -> BuiltLibrary:
         built = build(SOURCE_BWD)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         built.lib.flash_attn_bwd_dq.argtypes = (
-            [i32] + [ptr] * 7 + [i32, i32, i32, ctypes.c_float, ptr])
+            [i32] + [ptr] * 8 + [i32, i32, i32, ctypes.c_float, ptr])
         built.lib.flash_attn_bwd_dkv.argtypes = (
             [i32] + [ptr] * 8 + [i32, i32, i32, ctypes.c_float, ptr])
         built.lib.flash_attn_bwd_dq.restype = i32
@@ -98,6 +101,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def delta_plain(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """rowsum(dO * O) in the accumulation type, [B*H, Nq]: the torch sum
+    that K2a's prologue replaces."""
+    B, H, Nq, _ = out.shape
+    acc = _acc(do.dtype)
+    return (do.to(acc) * out.to(acc)).sum(-1).reshape(B * H, Nq)
+
+
 def _bwd_probs(q, k, v, do, lse, delta, scale):
     """P = exp(S - lse) and dS = P * (dP - delta) in the accumulation type."""
     B, H, Nq, D = q.shape
@@ -108,12 +119,19 @@ def _bwd_probs(q, k, v, do, lse, delta, scale):
     return p, p * (dp - delta.reshape(B, H, Nq, 1).to(acc))
 
 
-def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale):
-    """K2a's function in plain PyTorch: dS cast to k's dtype before
+def dq_from_delta_plain(q, k, v, do, lse, delta, scale):
+    """dQ given delta, in plain PyTorch: dS cast to k's dtype before
     dQ = dS K, fp32 accumulation, scale applied after it."""
     acc = _acc(q.dtype)
     _, ds = _bwd_probs(q, k, v, do, lse, delta, scale)
     return (torch.matmul(ds.to(k.dtype).to(acc), k.to(acc)) * scale).to(q.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, out, do, lse, scale):
+    """K2a's function in plain PyTorch: (dq, delta), delta the torch sum
+    ``delta_plain``."""
+    delta = delta_plain(do, out)
+    return dq_from_delta_plain(q, k, v, do, lse, delta, scale), delta
 
 
 def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale):
@@ -127,10 +145,10 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, do, lse, delta, scale):
+def flash_attention_bwd_plain(q, k, v, out, do, lse, scale):
     """K2a and K2b's functions in plain PyTorch: (dq, dk, dv)."""
-    return (flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale),
-            *flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale))
+    dq, delta = flash_attention_bwd_dq_plain(q, k, v, out, do, lse, scale)
+    return (dq, *flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale))
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -179,15 +197,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
-def _check_bwd(q, k, v, do, lse, delta) -> None:
+def _check_bwd(q, k, v, like_q: dict, rows: dict) -> None:
+    """K1's checks; each of ``like_q`` (do, out) a contiguous tensor shaped
+    and typed like q, on its device, on a 16-byte boundary; each of
+    ``rows`` (lse, delta) a contiguous fp32 [B*H, Nq] tensor on q's device."""
     _check(q, k, v)
     B, H, Nq, D = q.shape
-    if (do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous()
-            or do.device != q.device):
-        raise ValueError(f"flash_attention_bwd: do must be a contiguous "
-                         f"{tuple(q.shape)} {q.dtype} tensor on {q.device}, got "
-                         f"{tuple(do.shape)} {do.dtype} on {do.device}")
-    for name, t in (("lse", lse), ("delta", delta)):
+    for name, t in like_q.items():
+        if (t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous()
+                or t.device != q.device or t.data_ptr() % 16):
+            raise ValueError(f"flash_attention_bwd: {name} must be a contiguous "
+                             f"{tuple(q.shape)} {q.dtype} tensor on {q.device} on a "
+                             f"16-byte boundary, got {tuple(t.shape)} {t.dtype} on "
+                             f"{t.device}")
+    for name, t in rows.items():
         if (t.shape != (B * H, Nq) or t.dtype != torch.float32
                 or not t.is_contiguous() or t.device != q.device):
             raise ValueError(f"flash_attention_bwd: {name} must be a contiguous "
@@ -199,32 +222,34 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale) -> torch.Tensor:
-    """K2a: dq of ``flash_attention``'s out."""
+def flash_attention_bwd_dq(q, k, v, out, do, lse, scale):
+    """K2a: (dq, delta) of ``flash_attention``'s out; delta = rowsum(do *
+    out) fp32 [B*H, Nq], for K2b."""
     global LAUNCHES_DQ
-    if _on_cpu(q, k, v, do, lse, delta):
-        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
-    _check_bwd(q, k, v, do, lse, delta)
+    if _on_cpu(q, k, v, out, do, lse):
+        return flash_attention_bwd_dq_plain(q, k, v, out, do, lse, scale)
+    _check_bwd(q, k, v, {"do": do, "out": out}, {"lse": lse})
     B, H, Nq, D = q.shape
     dq = torch.empty_like(q)
+    delta = torch.empty((B * H, Nq), dtype=torch.float32, device=q.device)
     fn = load_bwd().lib.flash_attn_bwd_dq
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(_DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                 B * H, Nq, k.shape[2], float(scale), stream)
+                 out.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                 dq.data_ptr(), B * H, Nq, k.shape[2], float(scale), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd_dq launch failed: cudaError_t {err}")
     LAUNCHES_DQ += 1
-    return dq
+    return dq, delta
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
-    """K2b: (dk, dv) of ``flash_attention``'s out."""
+    """K2b: (dk, dv) of ``flash_attention``'s out, delta from K2a."""
     global LAUNCHES_DKV
     if _on_cpu(q, k, v, do, lse, delta):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
-    _check_bwd(q, k, v, do, lse, delta)
+    _check_bwd(q, k, v, {"do": do}, {"lse": lse, "delta": delta})
     B, H, Nq, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     fn = load_bwd().lib.flash_attn_bwd_dkv
@@ -239,7 +264,8 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale):
     return dk, dv
 
 
-def flash_attention_bwd(q, k, v, do, lse, delta, scale):
-    """Gradients (dq, dk, dv) of ``flash_attention``'s out: K2a then K2b."""
-    return (flash_attention_bwd_dq(q, k, v, do, lse, delta, scale),
-            *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))
+def flash_attention_bwd(q, k, v, out, do, lse, scale):
+    """Gradients (dq, dk, dv) of ``flash_attention``'s out: K2a (with
+    delta) then K2b."""
+    dq, delta = flash_attention_bwd_dq(q, k, v, out, do, lse, scale)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale))

@@ -9,9 +9,9 @@ in vista_slam_tpu/ops/attention.py.
   * ``use_flash=True``: ``FlashAttention``, the counterpart of the JAX
     package's ``custom_vjp`` around its Pallas kernels (ops/pallas/flash.py):
     the forward is kernel K1 and saves q, k, v, out and lse; the backward
-    computes delta = rowsum(dO * O) in fp32 and runs K2a (dq) and K2b
-    (dk, dv) (kernels/flash_attn.py). CUDA tensors go to the kernels, CPU
-    tensors to their plain versions.
+    runs K2a (delta = rowsum(dO * O) in fp32, and dq) and K2b (dk, dv)
+    (kernels/flash_attn.py). CUDA tensors go to the kernels, CPU tensors
+    to their plain versions.
   * ``fused_train=True``: ``FusedTrainAttention``, the counterpart of the
     JAX package's ``fused_attention`` (ops/pallas/attn_train.py), for
     N_q == N_kv <= ``MAX_FUSED_TOKENS`` below the flash threshold: the
@@ -55,16 +55,8 @@ class FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = _delta(do, out)
-        dq, dk, dv = flash_attn.flash_attention_bwd(q, k, v, do, lse, delta, ctx.scale)
+        dq, dk, dv = flash_attn.flash_attention_bwd(q, k, v, out, do, lse, ctx.scale)
         return dq, dk, dv, None
-
-
-def _delta(do: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
-    """rowsum(dO * O) in fp32 (fp64 for fp64 inputs), [B*H, N]."""
-    B, H, N, _ = out.shape
-    acc = torch.float64 if do.dtype == torch.float64 else torch.float32
-    return (do.to(acc) * out.to(acc)).sum(-1).reshape(B * H, N)
 
 
 class FusedTrainAttention(torch.autograd.Function):
@@ -82,8 +74,8 @@ class FusedTrainAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        dq, dk, dv = attn_train.fused_attention_bwd(q, k, v, do, lse, _delta(do, out),
-                                                    ctx.scale)
+        delta = flash_attn.delta_plain(do, out)  # rowsum(dO * O); K2a forms its own
+        dq, dk, dv = attn_train.fused_attention_bwd(q, k, v, do, lse, delta, ctx.scale)
         return dq, dk, dv, None
 
 
