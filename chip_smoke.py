@@ -24,10 +24,10 @@ Phases, each printed on its own lines; any failure exits non-zero:
                also at scales -0.125, 0 and 1.0; times one call per event
                pair and, in bf16, device times by CUDA-graph replay of K2a,
                K2b and the whole flash backward beside SDPA's flash backward
-               called alone, as a table (any tree measured with this script
-               has its backward timed as that tree computes it);
+               called alone, as a table;
   5. K5      — the fused bf16-moment AdamW against its plain version at the
-               model's largest and smallest eligible leaves, and its times;
+               model's largest and smallest eligible leaves, and its times
+               (at the largest also by CUDA-graph replay);
   5a. K3     — K3a (fused short-sequence attention forward) and K3b (its
                one-kernel backward) against their plain versions at the
                memory-knob training path's shapes and at N = 130, 256, 1024,
@@ -37,8 +37,12 @@ Phases, each printed on its own lines; any failure exits non-zero:
                backward called alone (K3b alone and with delta);
   5b. K4     — the int8-moment AdamW against its plain version on the
                memory-knob model's largest conv leaf, its largest Linear
-               leaf (transposed JAX layout) and its smallest eligible leaf:
-               p, codes and scales, differing codes counted; times, bound;
+               leaves of output widths 4096 and 768 (transposed JAX
+               layouts), its largest transposed-conv leaf and its smallest
+               eligible leaf, and on all five in one multi-leaf call where
+               the tree has one: p and scales bit-identical, differing codes
+               counted, a no-weight-decay control, two calls bit-identical;
+               device times by CUDA-graph replay beside the bound;
   6. SDPA    — torch's scaled_dot_product_attention forward and backward
                at the K2/K3 timed shapes: a yardstick, never on the path;
                beside its backward at K2's shape, the port's whole flash
@@ -70,20 +74,21 @@ Phases, each printed on its own lines; any failure exits non-zero:
                through make_train_step: loss per step, ms per step, peak
                memory, finite loss and gradients, parameters moved by step
                3, and K1/K2a/K2b/K5 launch counts equal to those derived
-               from the model, with no plain attention; before the steps,
-               the step-1 gradients' relative 2-norm gaps to those through
-               K2's plain versions, through K2 (twice) and through SDPA's
-               flash backward (a reading, not gated);
+               from the model, with no plain attention;
  12. memory-knob slice — configs/train_fast.yaml's 224x224 model at full
                width with its two memory knobs (attn_fused_train,
                int8_fused), batch 8 with 3 supports, 4 steps through
                make_train_step: the same readings, the optimizer state's
                bytes beside bf16 moments', and K3a/K3b/K4 launch counts
-               equal to those derived from the model, with no K1/K2/K5 and
-               no plain or flash attention; before the steps, the first
-               batch's loss forward only through K3a, K1, SDPA and K3's
-               plain versions in bf16 and in fp32, their relative gaps
-               printed beside the launch counts (a reading, not gated).
+               equal to those derived from the model (K4: its passes per
+               step where the tree updates all leaves at once, else one per
+               leaf with a gradient), with no K1/K2/K5 and no plain or flash
+               attention; K4's scratch and leaf-table bytes; after the
+               steps, the K4 work of one step over every leaf by CUDA-graph
+               replay and FusedAdamW.step() by event pair; before the steps,
+               the first batch's loss forward only through K3a, K1, SDPA
+               and K3's plain versions in bf16 and in fp32, their relative
+               gaps printed beside the launch counts (a reading, not gated).
 Each launch count is set to 0 just before a path runs and read just after.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the port next to
@@ -298,41 +303,19 @@ def attn_bounds(qshape, nk, itemsize: int) -> dict:
     }
 
 
-def torch_delta(do, out):
-    """rowsum(dO * O) in fp32, [B*H, N], as torch ops: what K3b's caller
-    forms, and what a tree before K2a formed delta took for K2."""
-    B, H, N, _ = out.shape
-    return (do.float() * out.float()).sum(-1).reshape(B * H, N)
-
-
 def k2_calls(fa, q, k, v, out, do, lse, scale: float) -> dict:
-    """Closures over one input set, each as the tree this script runs in
-    computes it: "K2a", "K2b", "bwd" (the whole flash backward: delta, K2a,
-    K2b) and their plain versions; "delta" is the one K2b is given. This
-    tree's K2a forms delta itself (returning (dq, delta)); an earlier tree's
-    (a parent measured with this script) took it from its caller, who
-    formed it with torch ops (``torch_delta``): there "K2a" is the kernel
-    alone and "bwd" adds the torch delta."""
-    import inspect
-
-    if "out" in inspect.signature(fa.flash_attention_bwd_dq).parameters:
-        a = (q, k, v, out, do, lse, scale)
-        delta = fa.flash_attention_bwd_dq(*a)[1]
-        b = (q, k, v, do, lse, delta, scale)
-        return {"K2a": lambda: fa.flash_attention_bwd_dq(*a),
-                "K2a_plain": lambda: fa.flash_attention_bwd_dq_plain(*a),
-                "K2b": lambda: fa.flash_attention_bwd_dkv(*b),
-                "K2b_plain": lambda: fa.flash_attention_bwd_dkv_plain(*b),
-                "bwd": lambda: fa.flash_attention_bwd(*a),
-                "bwd_plain": lambda: fa.flash_attention_bwd_plain(*a), "delta": delta}
-    b = (q, k, v, do, lse, torch_delta(do, out), scale)
-    return {"K2a": lambda: fa.flash_attention_bwd_dq(*b),
-            "K2a_plain": lambda: fa.flash_attention_bwd_dq_plain(*b),
+    """Closures over one input set: "K2a" (dq and delta), "K2b", "bwd" (the
+    whole flash backward: delta, K2a, K2b) and their plain versions;
+    "delta" is the one K2b is given."""
+    a = (q, k, v, out, do, lse, scale)
+    delta = fa.flash_attention_bwd_dq(*a)[1]
+    b = (q, k, v, do, lse, delta, scale)
+    return {"K2a": lambda: fa.flash_attention_bwd_dq(*a),
+            "K2a_plain": lambda: fa.flash_attention_bwd_dq_plain(*a),
             "K2b": lambda: fa.flash_attention_bwd_dkv(*b),
             "K2b_plain": lambda: fa.flash_attention_bwd_dkv_plain(*b),
-            "bwd": lambda: fa.flash_attention_bwd(q, k, v, do, lse, torch_delta(do, out),
-                                                  scale),
-            "bwd_plain": lambda: fa.flash_attention_bwd_plain(*b), "delta": b[5]}
+            "bwd": lambda: fa.flash_attention_bwd(*a),
+            "bwd_plain": lambda: fa.flash_attention_bwd_plain(*a), "delta": delta}
 
 
 def k2_errors(got, want) -> dict:
@@ -377,7 +360,7 @@ def check_k2(card: str) -> dict:
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"K2 {tname} {qshape}: two calls differ")
-            want_delta = torch_delta(do, out)
+            want_delta = fa.delta_plain(do, out)
             delta_err = ((calls["delta"] - want_delta).abs().max()
                          / want_delta.abs().max()).item()
             ref = calls["bwd_plain"]()
@@ -552,14 +535,19 @@ def check_k5(card: str) -> dict:
         ms = cuda_ms(lambda: adamw.fused_adamw_bf16(p, g, mu, nu, scalars, **hp))
         plain_ms = cuda_ms(lambda: adamw.fused_adamw_bf16_plain(p, g, mu, nu, scalars, **hp))
         b_ms, b_by = bound(16 * n, 20 * n, "fp32_flops")
-        log(f"K5 n={n}: normwise err " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
-            + f" (tol p {K5_TOL['p']:g}, moments {K5_TOL['moments']:g}); kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        line = (f"K5 n={n}: normwise err " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+                + f" (tol p {K5_TOL['p']:g}, moments {K5_TOL['moments']:g}); one call per "
+                f"event pair: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound {b_ms:.4f} ms "
+                f"({b_by})")
         if errs["p"] > K5_TOL["p"] or max(errs["mu"], errs["nu"]) > K5_TOL["moments"]:
             raise AssertionError(f"K5 n={n}: errors {errs} over tolerance")
-        if not result:  # the largest leaf is timed
+        if not result:  # the largest leaf is timed, also by CUDA-graph replay
+            g_ms = graph_ms(lambda: adamw.fused_adamw_bf16(p, g, mu, nu, scalars, **hp))
+            line += (f"; device ms (CUDA-graph replay) {g_ms:.4f} ({b_ms / g_ms:.3f} of the "
+                     "bound's rate)")
             result = {"max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
-                      "bound_ms": b_ms, "bound_by": b_by, "n": n}
+                      "bound_ms": b_ms, "bound_by": b_by, "n": n, "graph_ms": g_ms}
+        log(line + f" [{card}]")
         result["max_abs_err"] = max(result["max_abs_err"], abs_err)
     return result
 
@@ -598,6 +586,7 @@ def check_k3(card: str) -> dict:
     import torch.nn.functional as F
 
     from vista_slam_tpu_torch.kernels import attn_train as at
+    from vista_slam_tpu_torch.kernels import flash_attn as fa
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     worst = {"K3a": 0.0, "K3b": 0.0}
@@ -609,7 +598,7 @@ def check_k3(card: str) -> dict:
                            for _ in range(4))
             scale = D ** -0.5
             out, lse = at.fused_attention_fwd(q, k, v, scale)
-            args = (q, k, v, do, lse, torch_delta(do, out), scale)
+            args = (q, k, v, do, lse, fa.delta_plain(do, out), scale)
             grads = at.fused_attention_bwd(*args)
             again = (*at.fused_attention_fwd(q, k, v, scale), *at.fused_attention_bwd(*args))
             torch.cuda.synchronize()
@@ -640,7 +629,7 @@ def check_k3(card: str) -> dict:
                 g = {"K3a": graph_ms(lambda: at.fused_attention_fwd(q, k, v, scale)),
                      "K3b": graph_ms(lambda: at.fused_attention_bwd(*args)),
                      "delta_K3b": graph_ms(lambda: at.fused_attention_bwd(
-                         q, k, v, do, lse, torch_delta(do, out), scale)),
+                         q, k, v, do, lse, fa.delta_plain(do, out), scale)),
                      "sdpa_fwd": graph_ms(lambda: F.scaled_dot_product_attention(
                          q, k, v, scale=scale)),
                      "sdpa_bwd": graph_ms(sdpa_backward(q, k, v, do, scale))}
@@ -670,9 +659,12 @@ def check_k3(card: str) -> dict:
 
 
 def k4_leaves() -> list:
-    """(name, torch shape, JAX-layout permutation) of the memory-knob
-    model's largest conv leaf, largest Linear leaf (a transposed layout) and
-    smallest leaf that K4 takes, from a meta-device build (shapes only)."""
+    """(class, torch shape, JAX-layout permutation) of the memory-knob
+    model's leaves that K4 is checked and timed on, from a meta-device build
+    (shapes only): the largest conv leaf, the largest Linear leaves with
+    output widths 4096 and 768 (transposed layouts; 768-wide rows straddle
+    two inputs), the largest transposed-conv leaf and the smallest leaf K4
+    takes."""
     import torch
 
     from vista_slam_tpu_torch.models.convert import jax_layouts
@@ -683,81 +675,141 @@ def k4_leaves() -> list:
     with torch.device("meta"):
         model = STA(finetune.model_config("memory_knob"))
     layouts = jax_layouts(model)
-    leaves = [(n, tuple(p.shape), layouts[n]) for n, p in model.named_parameters()
+    leaves = [(tuple(p.shape), layouts[n]) for n, p in model.named_parameters()
               if fused_eligible(p)]
-    size = lambda leaf: math.prod(leaf[1])
-    conv = max((x for x in leaves if len(x[1]) == 4), key=size)
-    linear = max((x for x in leaves if x[2] == (1, 0)), key=size)
-    return [conv, linear, min(leaves, key=size)]
+
+    def largest(name, keep):
+        return (name, *max((x for x in leaves if keep(x)), key=lambda x: math.prod(x[0])))
+
+    return [largest("conv", lambda x: x[1] == (2, 3, 1, 0)),
+            largest("Linear out 4096", lambda x: x[1] == (1, 0) and x[0][0] == 4096),
+            largest("Linear out 768", lambda x: x[1] == (1, 0) and x[0][0] == 768),
+            largest("ConvTranspose", lambda x: x[1] == (0, 2, 3, 1)),
+            ("smallest", *min(leaves, key=lambda x: math.prod(x[0])))]
 
 
-def check_k4(card: str) -> dict:
-    """K4 against its plain version on the card. p and both scales must be
-    bit-identical (the kernel rounds where the plain version rounds): at
-    lr 1.5e-5 the whole update is ~3e-6 of max|p| and weight decay only a
-    part of that, so a tolerance on p would let a wrong update through. A
-    control run of the plain version without weight decay shows that this
-    check sees that share. Codes that differ are counted, and more than one
-    in 10^4, or any more than one step apart, fail."""
+K4_HP = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.05)
+
+
+def k4_bound(n: int) -> tuple[float, str]:
+    """K4's bound for n parameters: g, p read and p written (fp32), both
+    codes read and written, four fp32 scales a row; ~40 fp32 operations an
+    element."""
+    return bound(40 * n, 16 * n + 16 * (n // 1024), "fp32_flops")
+
+
+def k4_inputs(gen, shape, perm) -> tuple:
+    """p, g (torch layout) and a random int8 state for one leaf."""
     import torch
 
     from vista_slam_tpu_torch.kernels import adamw
 
-    hp = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.05)
+    C = math.prod(shape) // adamw.QBLOCK
+    p = torch.randn(shape, generator=gen, device="cuda")
+    g = torch.randn(shape, generator=gen, device="cuda") * torch.exp(
+        torch.rand(shape, generator=gen, device="cuda") * 5 - 4)
+    state = (torch.randint(-127, 128, (C, adamw.QBLOCK), generator=gen, device="cuda",
+                           dtype=torch.int8),
+             torch.rand((C, 1), generator=gen, device="cuda") * 1e-4,
+             torch.randint(0, 128, (C, adamw.QBLOCK), generator=gen, device="cuda",
+                           dtype=torch.int8),
+             torch.rand((C, 1), generator=gen, device="cuda") * 1e-3)
+    return p, g, state
+
+
+def k4_compare(tag: str, mine, ref, n: int) -> float:
+    """K4's result against the plain version's: p and both scales must be
+    bit-identical; codes that differ are counted, and more than one in
+    10^4, or any more than one step apart, fail. Returns p's max error."""
+    import torch
+
+    for t, what in zip(mine, ("p", "mu_q", "mu_s", "nu_q", "nu_s")):
+        if not torch.isfinite(t.float()).all():
+            raise AssertionError(f"{tag} {what}: non-finite")
+    exact = {what: torch.equal(a, b)
+             for what, a, b in (("p", mine[0], ref[0]), ("mu_s", mine[2], ref[2]),
+                                ("nu_s", mine[4], ref[4]))}
+    codes = {}
+    for what, a, b in (("mu_q", mine[1], ref[1]), ("nu_q", mine[3], ref[3])):
+        d = (a.int() - b.int()).abs()
+        codes[what] = (int((d > 0).sum()), int(d.max()))
+    p_err = (mine[0] - ref[0]).abs().max().item()
+    log(f"{tag}: bit-identical {exact}, p max abs err {p_err:.3e}, codes differing "
+        f"(count, max) {codes}")
+    if (not all(exact.values()) or any(c[1] > 1 for c in codes.values())
+            or sum(c[0] for c in codes.values()) > 1e-4 * n):
+        raise AssertionError(f"{tag}: kernel and plain version disagree")
+    return p_err
+
+
+def check_k4(card: str) -> dict:
+    """K4 against its plain version on the card, on each leaf of k4_leaves
+    and, where the tree has the multi-leaf entry, on all of them in one
+    call (k4_compare). At lr 1.5e-5 the whole update is ~3e-6 of max|p| and
+    weight decay only a part of that, so a tolerance on p would let a wrong
+    update through; a control run of the plain version without weight
+    decay shows that the check sees that share. Two calls are
+    bit-identical. Times per leaf: one call per event pair (host work
+    included; the JSON's "ms", at the conv leaf) and by CUDA-graph replay
+    (graph_ms, device time), beside the bound."""
+    import torch
+
+    from vista_slam_tpu_torch.kernels import adamw
+
     gen = torch.Generator(device="cuda").manual_seed(10)
-    result = {}
+    scalars = torch.tensor([0.7, 1.5e-5, 1 - 0.9 ** 3, 1 - 0.95 ** 3], device="cuda")
+    result, graphs, many = {}, {}, []
     for name, shape, perm in k4_leaves():
         n = math.prod(shape)
-        C = n // adamw.QBLOCK
-        p = torch.randn(shape, generator=gen, device="cuda")
-        g = torch.randn(shape, generator=gen, device="cuda") * torch.exp(
-            torch.rand(shape, generator=gen, device="cuda") * 5 - 4)
-        state = (torch.randint(-127, 128, (C, adamw.QBLOCK), generator=gen, device="cuda",
-                               dtype=torch.int8),
-                 torch.rand((C, 1), generator=gen, device="cuda") * 1e-4,
-                 torch.randint(0, 128, (C, adamw.QBLOCK), generator=gen, device="cuda",
-                               dtype=torch.int8),
-                 torch.rand((C, 1), generator=gen, device="cuda") * 1e-3)
-        scalars = torch.tensor([0.7, 1.5e-5, 1 - 0.9 ** 3, 1 - 0.95 ** 3], device="cuda")
-        mine = [t.clone() for t in (p, *state)]
-        ref = [t.clone() for t in (p, *state)]
-        ctrl = [t.clone() for t in (p, *state)]
-        adamw.fused_adamw_int8(mine[0].permute(perm), g.permute(perm), *mine[1:], scalars, **hp)
+        p, g, state = k4_inputs(gen, shape, perm)
+        mine, again, ref, ctrl = ([t.clone() for t in (p, *state)] for _ in range(4))
+        for out in (mine, again):
+            adamw.fused_adamw_int8(out[0].permute(perm), g.permute(perm), *out[1:], scalars,
+                                   **K4_HP)
         torch.cuda.synchronize()
         adamw.fused_adamw_int8_plain(ref[0].permute(perm), g.permute(perm), *ref[1:], scalars,
-                                     **hp)
+                                     **K4_HP)
         adamw.fused_adamw_int8_plain(ctrl[0].permute(perm), g.permute(perm), *ctrl[1:], scalars,
-                                     **dict(hp, wd=0.0))
+                                     **dict(K4_HP, wd=0.0))
         if torch.equal(ctrl[0], ref[0]):
             raise AssertionError(f"K4 {name}: the p check cannot see weight decay")
-        for t, what in zip(mine, ("p", "mu_q", "mu_s", "nu_q", "nu_s")):
-            if not torch.isfinite(t.float()).all():
-                raise AssertionError(f"K4 {name} {what}: non-finite")
-        exact = {what: torch.equal(a, b)
-                 for what, a, b in (("p", mine[0], ref[0]), ("mu_s", mine[2], ref[2]),
-                                    ("nu_s", mine[4], ref[4]))}
-        codes = {}
-        for what, a, b in (("mu_q", mine[1], ref[1]), ("nu_q", mine[3], ref[3])):
-            d = (a.int() - b.int()).abs()
-            codes[what] = (int((d > 0).sum()), int(d.max()))
+        if not all(torch.equal(a, b) for a, b in zip(mine, again)):
+            raise AssertionError(f"K4 {name}: two calls differ")
+        tag = f"K4 {name} {list(shape)} (JAX layout {list(perm)}, {n} params)"
+        p_err = k4_compare(tag, mine, ref, n)
+        many.append((shape, perm, p, g, state))
         args = (p.permute(perm), g.permute(perm), *state, scalars)
-        ms = cuda_ms(lambda: adamw.fused_adamw_int8(*args, **hp))
-        plain_ms = cuda_ms(lambda: adamw.fused_adamw_int8_plain(*args, **hp))
-        # g, p read and p written (fp32), both codes read and written, four
-        # fp32 scales a row; ~40 fp32 operations an element
-        b_ms, b_by = bound(40 * n, 16 * n + 16 * C, "fp32_flops")
-        p_err = (mine[0] - ref[0]).abs().max().item()
-        log(f"K4 {name} {list(shape)} (JAX layout {list(perm)}, {n} params): "
-            f"bit-identical {exact}, p max abs err {p_err:.3e}, codes differing "
-            f"(count, max) {codes}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}) [{card}]")
-        if (not all(exact.values()) or any(c[1] > 1 for c in codes.values())
-                or sum(c[0] for c in codes.values()) > 1e-4 * n):
-            raise AssertionError(f"K4 {name}: kernel and plain version disagree")
-        if not result:  # the largest leaf is timed
+        ms = cuda_ms(lambda: adamw.fused_adamw_int8(*args, **K4_HP))
+        plain_ms = cuda_ms(lambda: adamw.fused_adamw_int8_plain(*args, **K4_HP))
+        graphs[name] = graph_ms(lambda: adamw.fused_adamw_int8(*args, **K4_HP))
+        b_ms, b_by = k4_bound(n)
+        log(f"{tag}: two calls bit-identical; device ms (CUDA-graph replay) "
+            f"{graphs[name]:.4f} vs bound {b_ms:.4f} ({b_by}; {graphs[name] / b_ms:.2f}x); "
+            f"one call per event pair {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]")
+        if not result:  # the conv leaf is the JSON's timed leaf
             result = {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                      "bound_by": b_by, "n": n}
+                      "bound_by": b_by, "n": n, "graph_ms": graphs[name]}
         result["max_abs_err"] = max(result["max_abs_err"], p_err)
+    result["graph_ms_by_leaf"] = graphs
+    if not hasattr(adamw, "fused_adamw_int8_many"):
+        log("K4 multi-leaf call: not in this tree")
+        return result
+    # every leaf of the list in one call, the last one with no weight decay
+    # (p and the state were not touched since the plain version read them)
+    leaves, refs = [], []
+    for k, (shape, perm, p, g, state) in enumerate(many):
+        wd = 0.0 if k == len(many) - 1 else K4_HP["wd"]
+        out = [t.clone() for t in (p, *state)]
+        leaves.append((out[0].permute(perm), g.permute(perm), *out[1:], wd))
+        want = [t.clone() for t in (p, *state)]
+        adamw.fused_adamw_int8_plain(want[0].permute(perm), g.permute(perm), *want[1:],
+                                     scalars, **dict(K4_HP, wd=wd))
+        refs.append((out, want, math.prod(shape)))
+    adamw.fused_adamw_int8_many(leaves, scalars, b1=K4_HP["b1"], b2=K4_HP["b2"],
+                                eps=K4_HP["eps"])
+    torch.cuda.synchronize()
+    for k, (out, want, n) in enumerate(refs):
+        k4_compare(f"K4 one call over {len(refs)} leaves, leaf {k}", out, want, n)
     return result
 
 
@@ -1061,68 +1113,17 @@ def route_losses(model, batch, n_support: int) -> dict:
     return {"losses": losses, "gaps": gaps}
 
 
-def grad_gaps(model, batch, n_support: int) -> dict:
-    """The highres step-1 gradient of one batch (no update), as one fp32
-    vector, through K2's plain versions (the reference), through K2a/K2b
-    twice, and through SDPA's flash backward (aten's op) on K1's out and
-    lse, a second rounding of the same backward; each one's relative 2-norm
-    gap to the plain route's. The rest of the step runs torch's
-    deterministic algorithms, so K2's gap to itself reads 0 and the others
-    are attention's alone (aten's flash backward has no deterministic form
-    and warns). Not gated: readings for PERF.md."""
-    import torch
-
-    from vista_slam_tpu_torch.kernels import flash_attn as fa
-    from vista_slam_tpu_torch.ops.attention import FlashAttention
-    from vista_slam_tpu_torch.train import finetune
-    from vista_slam_tpu_torch.train.step import batch_to, make_loss_fn
-
-    def sdpa_route(ctx, do):
-        q, k, v, out, lse = ctx.saved_tensors
-        return (*sdpa_backward(q, k, v, do.contiguous(), ctx.scale, out, lse)()[:3], None)
-
-    loss_fn, b = make_loss_fn(model, n_support), batch_to(batch, "cuda")
-    params = [p for p in model.parameters() if p.requires_grad]
-
-    def grad() -> torch.Tensor:
-        loss = loss_fn(b, finetune.TRAIN["alpha_init"])[0]
-        g = torch.autograd.grad(loss, params, allow_unused=True)
-        return torch.cat([x.float().flatten() for x in g if x is not None])
-
-    kernels, backward = (fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv), \
-        FlashAttention.backward
-    deterministic = (torch.are_deterministic_algorithms_enabled(),
-                     torch.is_deterministic_algorithms_warn_only_enabled())
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        fa.flash_attention_bwd_dq = fa.flash_attention_bwd_dq_plain
-        fa.flash_attention_bwd_dkv = fa.flash_attention_bwd_dkv_plain
-        ref = grad()
-        fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = kernels
-
-        def gap(g: torch.Tensor, to: torch.Tensor = ref) -> float:
-            return ((g - to).norm() / ref.norm()).item()
-
-        k2 = grad()
-        gaps = {"K2": gap(k2), "K2 vs K2 again": gap(grad(), k2)}
-        del k2
-        FlashAttention.backward = staticmethod(sdpa_route)
-        gaps["SDPA bwd on K1's out"] = gap(grad())
-    finally:
-        fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv = kernels
-        FlashAttention.backward = staticmethod(backward)
-        torch.use_deterministic_algorithms(deterministic[0], warn_only=deterministic[1])
-    return gaps
-
-
 def run_train_slice(card: str, preset: str) -> dict:
     """A training preset at full width (train/finetune.py), TRAIN_STEPS
     steps of the preset's batch through make_train_step: highres.yaml's
     384x512 model with bf16_fused AdamW, or train_fast.yaml's 224x224 model
     with attn_fused_train and int8_fused AdamW; train_fast's
     hyper-parameters."""
+    import ctypes
+
     import torch
 
+    from vista_slam_tpu_torch.kernels import adamw
     from vista_slam_tpu_torch.kernels.adamw import QBLOCK
     from vista_slam_tpu_torch.ops import attention
     from vista_slam_tpu_torch.train import finetune
@@ -1151,24 +1152,27 @@ def run_train_slice(card: str, preset: str) -> dict:
         log(f"{tag}: optimizer state of the {n_fused} params on K4: {int8} bytes of int8 "
             f"codes + fp32 scales, against {4 * n_fused} bytes of bf16 moments "
             f"({int8 / (4 * n_fused):.4f} of them; {n_fused // QBLOCK} rows)")
+        if getattr(opt, "int8", None) is not None:  # K4's own, apart from the state
+            log(f"{tag}: K4's row-maxima scratch {opt.int8.scratch.numel() * 4} bytes on "
+                f"the card; its leaf table {len(opt.int8.entries)} x "
+                f"{ctypes.sizeof(adamw._Leaf)} bytes on the host (kernel parameters)")
     # the reference's unused skip unit gets no gradient and no update
     with_grad = sum("refinenet4.resConfUnit1" not in n for n, _ in fused)
     per_step = 2 * (cfg.enc_depth + cfg.dec_depth)  # attention calls per step
     expected = {k: 0 for k in launch_counts()}
     for k in (fwd, *bwd):
         expected[k] = per_step * TRAIN_STEPS
-    expected[opt_k] = with_grad * TRAIN_STEPS
+    # K5, and K4 before its multi-leaf form: one launch per leaf with a
+    # gradient; K4 now: its passes per step, whatever the leaf count
+    per_opt_step = with_grad
+    if preset == "memory_knob" and hasattr(adamw, "int8_launches"):
+        per_opt_step = adamw.int8_launches(with_grad)
+    expected[opt_k] = per_opt_step * TRAIN_STEPS
     route = "flash" if preset == "highres" else "fused"
     expected_calls = {"flash": 0, "plain": 0, "fused": 0, route: per_step * TRAIN_STEPS}
     first = {n: p.detach().clone() for n, p in model.named_parameters()}
     if preset == "memory_knob":
         routes = route_losses(model, batches[0], S)
-    else:
-        gaps = grad_gaps(model, batches[0], S)
-        log(f"{tag}: step-1 gradients at full width in bf16, relative 2-norm gap to "
-            "the route through K2's plain versions: "
-            + ", ".join(f"{n} {g:.3e}" for n, g in gaps.items()) + f" [{card}]")
-        torch.cuda.empty_cache()
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -1207,7 +1211,52 @@ def run_train_slice(card: str, preset: str) -> dict:
     if launches != expected or calls != expected_calls:
         raise AssertionError(f"{tag} launches {launches} / paths {calls}, expected "
                              f"{expected} / {expected_calls}")
-    return {"launches": launches, "ms_per_step": ms, "peak_gib": peak}
+    out = {"launches": launches, "ms_per_step": ms, "peak_gib": peak}
+    if preset == "memory_knob":
+        out["k4_step"] = time_k4_step(card, opt)
+    return out
+
+
+def time_k4_step(card: str, opt) -> dict:
+    """The K4 work of one memory-knob step, on the slice's own leaves and
+    last gradients, after the slice's checks (each call updates the
+    parameters again; timing only): by CUDA-graph replay (device time), the
+    optimizer's table step over every int8 leaf with a gradient where the
+    tree has one, else one fused_adamw_int8 call per leaf as that tree's
+    step makes them; and FusedAdamW.step() as a whole, one call per event
+    pair (host work included: the gradient norm, the step scalars, K4, the
+    small leaves in fp32); beside the bound of those leaves."""
+    import torch
+
+    from vista_slam_tpu_torch.kernels import adamw
+    from vista_slam_tpu_torch.train.quantized_opt import FusedInt8Leaf
+
+    live = [i for i, (p, m) in enumerate(zip(opt.params, opt.moments))
+            if isinstance(m, FusedInt8Leaf) and p.grad is not None]
+    grads = {i: opt.params[i].grad.contiguous().permute(opt.layouts[i]) for i in live}
+    scalars = torch.tensor([0.7, 1.5e-5, 1 - 0.9 ** 3, 1 - 0.95 ** 3], device="cuda")
+    if getattr(opt, "int8", None) is not None:
+        table, by_leaf = opt.int8, [grads.get(i) for i in opt.int8_index]
+
+        def work():
+            table.step(by_leaf, scalars)
+    else:
+        views = [(opt.params[i].data.permute(opt.layouts[i]), grads[i], *opt.moments[i],
+                  opt.weight_decay if opt.decay[i] else 0.0) for i in live]
+
+        def work():
+            for p, g, *state, wd in views:
+                adamw.fused_adamw_int8(p, g, *state, scalars, wd=wd, b1=opt.b1, b2=opt.b2,
+                                       eps=opt.eps)
+    n = sum(opt.params[i].numel() for i in live)
+    b_ms, b_by = k4_bound(n)
+    t = {"step_graph_ms": graph_ms(work, reps=10, inner=2),
+         "step_event_ms": cuda_ms(opt.step, warmup=2, reps=10), "step_bound_ms": b_ms}
+    log(f"K4 over one memory-knob step ({len(live)} leaves, {n} params): device ms "
+        f"(CUDA-graph replay) {t['step_graph_ms']:.4f} vs bound {b_ms:.4f} ({b_by}; "
+        f"{t['step_graph_ms'] / b_ms:.2f}x); FusedAdamW.step() one call per event pair "
+        f"{t['step_event_ms']:.4f} ms (host work included) [{card}]")
+    return t
 
 
 KERNELS = {  # name, source, the TPU kernel it replaces
@@ -1301,9 +1350,12 @@ def main() -> int:
              "K3a": dict(k3["K3a"], library_ms=sdpa["K3a"], timed_at=f"bf16 q{list(K3_TIMED_AT)}"),
              "K3b": dict(k3["K3b"], library_ms=sdpa["K3b"], timed_at=f"bf16 q{list(K3_TIMED_AT)}"),
              "K4": dict(max_abs_err=k4["max_abs_err"], ms=k4["ms"], plain_ms=k4["plain_ms"],
-                        library_ms=None, timed_at=f"leaf of {k4['n']} params"),
+                        library_ms=None, timed_at=f"leaf of {k4['n']} params",
+                        graph_ms=k4["graph_ms"], graph_ms_by_leaf=k4["graph_ms_by_leaf"],
+                        **knob["k4_step"]),
              "K5": dict(max_abs_err=k5["max_abs_err"], ms=k5["ms"], plain_ms=k5["plain_ms"],
-                        library_ms=None, timed_at=f"leaf of {k5['n']} params")}
+                        library_ms=None, timed_at=f"leaf of {k5['n']} params",
+                        graph_ms=k5["graph_ms"])}
     by_path = {k: {"slam": slam_launches if k == "K1" else 0,
                    "train": train["launches"][k],
                    "train_memory_knob": knob["launches"][k]} for k in KERNELS}
@@ -1316,7 +1368,9 @@ def main() -> int:
         "library_ms": timed[k]["library_ms"], "timed_at": timed[k]["timed_at"],
         "ms_by": "one call per CUDA event pair, host work included",
         **{f: timed[k][f] for f in ("graph_ms", "library_graph_ms", "graph_ms_with_delta",
-                                    "backward_graph_ms", "sdpa_backward_graph_ms")
+                                    "backward_graph_ms", "sdpa_backward_graph_ms",
+                                    "graph_ms_by_leaf", "step_graph_ms", "step_event_ms",
+                                    "step_bound_ms")
            if f in timed[k]}}
         for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {

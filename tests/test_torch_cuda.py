@@ -109,10 +109,106 @@ def test_int8_adamw_kernel_matches_plain_on_card():
     launches = adamw.LAUNCHES_INT8
     adamw.fused_adamw_int8(mine[0].t(), g.t(), *mine[1:], scalars, **hp)
     torch.cuda.synchronize()
-    assert adamw.LAUNCHES_INT8 == launches + 1
+    assert adamw.LAUNCHES_INT8 == launches + adamw.INT8_PASSES
     adamw.fused_adamw_int8_plain(ref[0].t(), g.t(), *ref[1:], scalars, **hp)
     assert torch.equal(mine[0], ref[0])
     assert torch.equal(mine[2], ref[2]) and torch.equal(mine[4], ref[4])
     for a, b in ((mine[1], ref[1]), (mine[3], ref[3])):
         d = (a.int() - b.int()).abs()
         assert d.max().item() <= 1 and (d > 0).sum().item() <= 1e-4 * d.numel()
+
+
+# K4's multi-leaf call: every layout the memory-knob model has, as (torch
+# shape, JAX-layout permutation, weight decay)
+K4_LEAVES = (
+    ((768, 1024), (1, 0), 0.05),          # Linear out 768: rows straddle two inputs
+    ((1024, 1024), (1, 0), 0.05),         # Linear out 1024
+    ((256, 256, 3, 3), (2, 3, 1, 0), 0.05),  # conv
+    ((96, 96, 4, 4), (0, 2, 3, 1), 0.05),    # transposed conv
+    ((3072,), (0,), 0.05),                # identity
+    ((256, 32), (1, 0), 0.05),            # 8 rows, a ragged tile
+    ((512, 512), (1, 0), 0.0),            # no weight decay
+    ((3, 1024), (1, 0), 0.05),            # output width 3: codes a byte a load
+    ((64, 1024), (1, 0), 0.05),           # left out: no gradient
+)
+
+
+def _k4_state(gen, shape):
+    from vista_slam_tpu_torch.kernels import adamw
+
+    n = 1
+    for d in shape:
+        n *= d
+    C = n // adamw.QBLOCK
+    p = torch.randn(shape, generator=gen, device="cuda")
+    g = torch.randn(shape, generator=gen, device="cuda") * torch.exp(
+        torch.rand(shape, generator=gen, device="cuda") * 5 - 4)
+    return p, g, (torch.randint(-127, 128, (C, 1024), generator=gen, device="cuda",
+                                dtype=torch.int8),
+                  torch.rand((C, 1), generator=gen, device="cuda") * 1e-4,
+                  torch.randint(0, 128, (C, 1024), generator=gen, device="cuda",
+                                dtype=torch.int8),
+                  torch.rand((C, 1), generator=gen, device="cuda") * 1e-3)
+
+
+@pytest.mark.cuda
+def test_int8_adamw_many_matches_plain_on_card():
+    """K4 over every layout in one multi-leaf call against the plain
+    version leaf by leaf: p and both scales bit-identical, codes at most one
+    step apart in at most 1 of 10^4; a second call on copies is
+    bit-identical; a leaf left out (no gradient) is untouched; the call
+    makes INT8_PASSES launches whatever the leaf count."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from vista_slam_tpu_torch.kernels import adamw
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    scalars = torch.tensor([0.7, 1e-3, 0.19, 0.0975], device="cuda")
+    hp = dict(b1=0.9, b2=0.95, eps=1e-8)
+    data = [(_k4_state(gen, shape), perm, wd) for shape, perm, wd in K4_LEAVES]
+    runs = []
+    for _ in range(2):
+        outs = [[t.clone() for t in (p, *state)] for (p, _, state), _, _ in data]
+        leaves = [(o[0].permute(perm), g.permute(perm), *o[1:], wd)
+                  for o, ((_, g, _), perm, wd) in zip(outs, data)]
+        leaves[-1] = leaves[-1][:1] + (None,) + leaves[-1][2:]  # left out
+        launches = adamw.LAUNCHES_INT8
+        adamw.fused_adamw_int8_many(leaves, scalars, **hp)
+        torch.cuda.synchronize()
+        assert adamw.LAUNCHES_INT8 == launches + adamw.INT8_PASSES
+        runs.append(outs)
+    differ, total = 0, 0
+    for k, ((p, g, state), perm, wd) in enumerate(data):
+        assert all(torch.equal(a, b) for a, b in zip(runs[0][k], runs[1][k])), k
+        ref = [t.clone() for t in (p, *state)]
+        if k < len(data) - 1:
+            adamw.fused_adamw_int8_plain(ref[0].permute(perm), g.permute(perm), *ref[1:],
+                                         scalars, wd=wd, **hp)
+        mine = runs[0][k]
+        assert torch.equal(mine[0], ref[0]), k
+        assert torch.equal(mine[2], ref[2]) and torch.equal(mine[4], ref[4]), k
+        for a, b in ((mine[1], ref[1]), (mine[3], ref[3])):
+            d = (a.int() - b.int()).abs()
+            assert d.max().item() <= 1, k
+            differ += (d > 0).sum().item()
+            total += d.numel()
+    assert differ <= 1e-4 * total
+
+
+@pytest.mark.cuda
+def test_int8_adamw_refuses_a_layout_it_cannot_take_on_card():
+    """A CUDA leaf whose view is not one of K4's layouts (here dims of a
+    dense block out of memory order before the last) raises; nothing
+    falls back to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernel has no CPU mode)")
+    from vista_slam_tpu_torch.kernels import adamw
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    p, g, state = _k4_state(gen, (4, 2, 1024))
+    launches = adamw.LAUNCHES_INT8
+    with pytest.raises(ValueError):
+        adamw.fused_adamw_int8(p.permute(1, 0, 2), g.permute(1, 0, 2), *state,
+                               torch.ones(4, device="cuda"), b1=0.9, b2=0.95, eps=1e-8,
+                               wd=0.0)
+    assert adamw.LAUNCHES_INT8 == launches

@@ -2,7 +2,10 @@
 
 K4's plain version (kernels/adamw.py::fused_adamw_int8_plain) against the
 JAX package's Pallas kernel (ops/pallas/adam8.py::fused_adamw_int8,
-``interpret=True``) on single leaves; the ``int8_fused`` optimizer over 3
+``interpret=True``) on single leaves; K4's multi-leaf entry on the CPU
+against the plain version leaf by leaf, and the layout descriptors K4
+addresses each leaf by (kernels/adamw.py::int8_layout) against the views'
+own flatten; the ``int8_fused`` optimizer over 3
 steps on a tree whose leaves have torch layouts other than their JAX ones
 (its blocks must follow the JAX layout); the ``bf16`` and ``int8``
 carriers against the JAX package's ``adamw_q`` chain; and the JAX-layout
@@ -92,6 +95,83 @@ def test_int8_leaf_matches_jax_kernel(rows):
     _codes_close(mine[4].numpy(), want[3], "nu_q")
     _scales_close(mine[5].numpy(), want[4], "nu_s")
     assert (mine[4].numpy() >= 1).all()  # every code after a step is 1..127
+
+
+# K4's multi-leaf entry: every layout the memory-knob model has, as (torch
+# shape, JAX-layout permutation, weight decay)
+MANY = (
+    ((768, 256), (1, 0), 0.05),          # Linear out 768: rows straddle two inputs
+    ((1024, 64), (1, 0), 0.05),          # Linear out 1024
+    ((64, 16, 3, 3), (2, 3, 1, 0), 0.05),  # conv
+    ((16, 32, 2, 2), (0, 2, 3, 1), 0.05),  # transposed conv
+    ((3072,), (0,), 0.05),               # identity
+    ((256, 32), (1, 0), 0.05),           # 8 rows (the JAX kernel's grid step takes 256)
+    ((128, 64), (1, 0), 0.0),            # no weight decay
+    ((3, 1024), (1, 0), 0.05),           # an output width K4 reads a byte at a time
+    ((32, 64), (1, 0), 0.05),            # left out: no gradient
+)
+
+
+def _many_leaf(rng, shape):
+    n = int(np.prod(shape))
+    C = n // adamw.QBLOCK
+    return (torch.from_numpy(rng.standard_normal(shape).astype(np.float32)),
+            torch.from_numpy((rng.standard_normal(shape) * np.exp(rng.uniform(-4, 1, shape)))
+                             .astype(np.float32)),
+            torch.from_numpy(rng.integers(-127, 128, (C, 1024)).astype(np.int8)),
+            torch.from_numpy((rng.uniform(0.1, 1, (C, 1)) * 1e-2 / 127).astype(np.float32)),
+            torch.from_numpy(rng.integers(0, 128, (C, 1024)).astype(np.int8)),
+            torch.from_numpy((rng.uniform(0.1, 1, (C, 1)) * 1e-3).astype(np.float32)))
+
+
+def test_int8_many_plain_path_matches_per_leaf_plain():
+    """On CPU tensors the multi-leaf entry (one list with every layout, a
+    ragged leaf, a leaf without weight decay, a leaf without a gradient)
+    updates each leaf bit for bit as the per-leaf plain version does, the
+    leaf left out not at all, and launches nothing."""
+    rng = np.random.default_rng(21)
+    scalars = torch.tensor([0.7, 1e-2, 1 - 0.9 ** 3, 1 - 0.95 ** 3])
+    hp = {k: HP[k] for k in ("b1", "b2", "eps")}
+    data = [(_many_leaf(rng, shape), perm, wd) for shape, perm, wd in MANY]
+    mine = [[t.clone() for t in leaf] for leaf, _, _ in data]
+    leaves = [(t[0].permute(perm), None if k == len(MANY) - 1 else t[1].permute(perm),
+               *t[2:], wd) for k, (t, (_, perm, wd)) in enumerate(zip(mine, data))]
+    launches = adamw.LAUNCHES_INT8
+    adamw.fused_adamw_int8_many(leaves, scalars, **hp)
+    assert adamw.LAUNCHES_INT8 == launches
+    for k, ((leaf, perm, wd), got) in enumerate(zip(data, mine)):
+        want = [t.clone() for t in leaf]
+        if k < len(MANY) - 1:
+            adamw.fused_adamw_int8_plain(want[0].permute(perm), want[1].permute(perm),
+                                         *want[2:], scalars, wd=wd, **hp)
+            assert not torch.equal(want[0], leaf[0]), k
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), k
+
+
+def test_int8_layouts_address_the_views():
+    """K4's descriptor (B, O, R, KK) of each layout of MANY, and of the
+    model's (1x1 convs, the 16x16 patch embedding, a multi-dim identity):
+    the kernel's two maps, torch offset (b * O + o) * R + r and JAX index
+    (b * R + (r % KK) * (R / KK) + r / KK) * O + o, pair every element of
+    the view's flatten with its place in memory. A view outside those
+    layouts raises."""
+    shapes = [(s, perm) for s, perm, _ in MANY] + [
+        ((96, 1024, 1, 1), (2, 3, 1, 0)), ((64, 3, 16, 16), (2, 3, 1, 0)),
+        ((4, 2, 1024), (0, 1, 2))]
+    for shape, perm in shapes:
+        base = torch.arange(int(np.prod(shape))).reshape(shape)
+        view = base.permute(perm)
+        B, O, R, KK = adamw.int8_layout(view)
+        assert B * O * R == base.numel(), shape
+        b, o, r = np.meshgrid(np.arange(B), np.arange(O), np.arange(R), indexing="ij")
+        torch_off = (b * O + o) * R + r
+        jax_idx = (b * R + (r % KK) * (R // KK) + r // KK) * O + o
+        assert np.array_equal(view.reshape(-1).numpy()[jax_idx], torch_off), shape
+    base = torch.zeros(4, 2, 1024)
+    for bad in (base.permute(1, 0, 2), base[:, :, :512], base.permute(2, 0, 1)[::2]):
+        with pytest.raises(ValueError):
+            adamw.int8_layout(bad)
 
 
 # leaves of the optimizer test: JAX-layout shape and the permutation that

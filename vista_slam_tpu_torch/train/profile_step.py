@@ -18,7 +18,8 @@ It runs two warm-up steps, then traces N steps (default 2) with
 torch.profiler and prints:
   * device time by kernel family (the port's kernels K1, K2a, K2b, K3a,
     K3b, K4, K5; matrix products; convolutions; everything else), summed
-    over the traced steps, with its share of the device time;
+    over the traced steps, with its share of the device time and its
+    device events (launches, copies, memsets) per step;
   * the device busy time against the host wall time of the traced steps
     (the idle share), the peak device memory over the warm-up and traced
     steps, the bytes of the optimizer's state, and the 25 kernels with the
@@ -127,8 +128,10 @@ def main() -> int:
         return 1
     busy_ms = sum(ms for _, ms in kernels)
     fams: dict[str, float] = {}
+    launches: dict[str, int] = {}
     for name, ms in kernels:
         fams[family(name)] = fams.get(family(name), 0.0) + ms
+        launches[family(name)] = launches.get(family(name), 0) + 1
     n = args.steps
     print(card)
     cfg = model.cfg
@@ -141,7 +144,8 @@ def main() -> int:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"optimizer state {state_bytes(opt.moments)} bytes [{card}]")
     for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
-        print(f"  {fam}: {ms / n:.2f} ms/step ({ms / busy_ms:.1%} of device time)")
+        print(f"  {fam}: {ms / n:.2f} ms/step ({ms / busy_ms:.1%} of device time, "
+              f"{launches[fam] / n:g} launches/step)")
     print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
     if args.table:
         os.makedirs(os.path.dirname(os.path.abspath(args.table)), exist_ok=True)

@@ -12,7 +12,8 @@ fp32 moments and take the same math in plain PyTorch.
     leaf is flattened in torch order.
   * ``state_dtype="int8_fused"``: int8 codes [C, QBLOCK] with one fp32
     scale per row for each moment (``FusedInt8Leaf``) through K4
-    (kernels/adamw.py::fused_adamw_int8). The scales belong to blocks of
+    (kernels/adamw.py::Int8Table, built at ``init``: one launch per pass
+    for all the leaves with a gradient). The scales belong to blocks of
     1024 elements of the leaf's flatten in the JAX package's layout, so K4
     takes each parameter through its JAX-layout view
     (models/convert.py::jax_layouts) and its blocks are the JAX package's.
@@ -43,7 +44,7 @@ from typing import Callable, NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..kernels.adamw import QBLOCK, fused_adamw_bf16, fused_adamw_int8
+from ..kernels.adamw import QBLOCK, Int8Table, fused_adamw_bf16
 
 MIN_QUANT_SIZE = 2048
 BLOCK = 256  # the carriers' int8 block (quantized_opt.py's BLOCK)
@@ -71,8 +72,12 @@ class Fp32Leaf(NamedTuple):
 
 
 def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(g.float() * g.float()) for g in grads))
+    """sqrt of the sum of squares of every gradient (optax.global_norm), in
+    fp32: the 2-norm of the gradients' 2-norms, one multi-tensor call for
+    those, summed in fp64 (the rounded result stays within an ulp or two of
+    an fp32 sum's, as a norm of fp32 norms alone would not)."""
+    norms = torch._foreach_norm([g.float() for g in grads], 2, dtype=torch.float64)
+    return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
 class _AdamWBase:
@@ -136,6 +141,17 @@ class FusedAdamW(_AdamWBase):
             raise ValueError(f"state_dtype must be bf16_fused|int8_fused, got {state_dtype!r}")
         super().__init__(schedule, b1, b2, eps, weight_decay, clip)
         self.state_dtype = state_dtype
+        self.int8: Int8Table | None = None  # K4's table of the int8 leaves
+        self.int8_index: list[int] = []     # the parameter of each of its leaves
+
+    def init(self, params, decay, layouts) -> None:
+        super().init(params, decay, layouts)
+        self.int8_index = [i for i, m in enumerate(self.moments)
+                           if isinstance(m, FusedInt8Leaf)]
+        self.int8 = Int8Table(
+            [(self.params[i].data.permute(self.layouts[i]), *self.moments[i],
+              self.weight_decay if self.decay[i] else 0.0) for i in self.int8_index],
+            b1=self.b1, b2=self.b2, eps=self.eps) if self.int8_index else None
 
     def _init_leaf(self, p):
         if not fused_eligible(p):
@@ -163,17 +179,17 @@ class FusedAdamW(_AdamWBase):
         scalars = torch.cat([coef.reshape(1), self._host_to(dev)])
         _, lr, c1, c2 = scalars.unbind()
         b1, b2, eps = self.b1, self.b2, self.eps
+        if self.int8 is not None:
+            # p and g are both contiguous: their views address alike
+            self.int8.step([grads[i].permute(self.layouts[i]) if i in grads else None
+                            for i in self.int8_index], scalars)
         for i in live:
             p, m, g = self.params[i], self.moments[i], grads[i]
             wd = self.weight_decay if self.decay[i] else 0.0
+            if isinstance(m, FusedInt8Leaf):
+                continue
             if isinstance(m, FusedBf16Leaf):
                 fused_adamw_bf16(p.data.view(-1), g.view(-1), m.mu, m.nu, scalars,
-                                 b1=b1, b2=b2, eps=eps, wd=wd)
-                continue
-            if isinstance(m, FusedInt8Leaf):
-                # p and g are both contiguous: their views address alike
-                perm = self.layouts[i]
-                fused_adamw_int8(p.data.permute(perm), g.permute(perm), *m, scalars,
                                  b1=b1, b2=b2, eps=eps, wd=wd)
                 continue
             # fp32 fallback: the same math in plain PyTorch
