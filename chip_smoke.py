@@ -84,8 +84,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                step where the tree updates all leaves at once, else one per
                leaf with a gradient), with no K1/K2/K5 and no plain or flash
                attention; K4's scratch and leaf-table bytes; after the
-               steps, the K4 work of one step over every leaf by CUDA-graph
-               replay and FusedAdamW.step() by event pair; before the steps,
+               steps, the K4 work of one step over every leaf as the
+               optimizer runs it, once against the plain version leaf by
+               leaf (as in 5b, with each leaf's weight decay; leaves
+               without a gradient unchanged), then by CUDA-graph replay,
+               and FusedAdamW.step() by event pair; before the steps,
                the first batch's loss forward only through K3a, K1, SDPA
                and K3's plain versions in bf16 and in fp32, their relative
                gaps printed beside the launch counts (a reading, not gated).
@@ -717,10 +720,11 @@ def k4_inputs(gen, shape, perm) -> tuple:
     return p, g, state
 
 
-def k4_compare(tag: str, mine, ref, n: int) -> float:
-    """K4's result against the plain version's: p and both scales must be
-    bit-identical; codes that differ are counted, and more than one in
-    10^4, or any more than one step apart, fail. Returns p's max error."""
+def k4_diff(tag: str, mine, ref, n: int) -> tuple[dict, dict, float, bool]:
+    """K4's result against the plain version's: whether p and both scales
+    are bit-identical, the (count, max step) of differing codes, p's max
+    error, and whether that agrees: p and the scales bit-identical, codes at
+    most one step apart in at most one of 10^4."""
     import torch
 
     for t, what in zip(mine, ("p", "mu_q", "mu_s", "nu_q", "nu_s")):
@@ -734,10 +738,17 @@ def k4_compare(tag: str, mine, ref, n: int) -> float:
         d = (a.int() - b.int()).abs()
         codes[what] = (int((d > 0).sum()), int(d.max()))
     p_err = (mine[0] - ref[0]).abs().max().item()
+    ok = (all(exact.values()) and all(c[1] <= 1 for c in codes.values())
+          and sum(c[0] for c in codes.values()) <= 1e-4 * n)
+    return exact, codes, p_err, ok
+
+
+def k4_compare(tag: str, mine, ref, n: int) -> float:
+    """k4_diff, printed; fails unless it agrees. Returns p's max error."""
+    exact, codes, p_err, ok = k4_diff(tag, mine, ref, n)
     log(f"{tag}: bit-identical {exact}, p max abs err {p_err:.3e}, codes differing "
         f"(count, max) {codes}")
-    if (not all(exact.values()) or any(c[1] > 1 for c in codes.values())
-            or sum(c[0] for c in codes.values()) > 1e-4 * n):
+    if not ok:
         raise AssertionError(f"{tag}: kernel and plain version disagree")
     return p_err
 
@@ -1217,15 +1228,70 @@ def run_train_slice(card: str, preset: str) -> dict:
     return out
 
 
+def check_k4_step(card: str, opt, grads: dict, scalars, work) -> float:
+    """The K4 work of one memory-knob step in the form the path runs it
+    (``work``: on this tree the optimizer's table over every int8 leaf, one
+    launch a pass), once on the slice's own parameters and state, against
+    fused_adamw_int8_plain leaf by leaf on copies of what it read: per leaf
+    k4_diff's agreement, each leaf's weight decay from the optimizer (a
+    control without it must differ on the decayed leaves), and the leaves
+    without a gradient unchanged. Returns p's max error."""
+    import torch
+
+    from vista_slam_tpu_torch.kernels import adamw
+    from vista_slam_tpu_torch.train.quantized_opt import FusedInt8Leaf
+
+    views = {i: (opt.params[i].data.permute(opt.layouts[i]), *m)
+             for i, m in enumerate(opt.moments) if isinstance(m, FusedInt8Leaf)}
+    before = {i: [t.clone() for t in v] for i, v in views.items()}
+    work()
+    torch.cuda.synchronize()
+    hp = dict(b1=opt.b1, b2=opt.b2, eps=opt.eps)
+    bad, p_err, agree, differing, worst, decayed, seen = [], 0.0, 0, 0, 0, 0, 0
+    for i, got in views.items():
+        want = before.pop(i)
+        if i not in grads:
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                bad.append((i, "changed without a gradient"))
+            continue
+        wd = opt.weight_decay if opt.decay[i] else 0.0
+        ctrl = [t.clone() for t in want] if wd else None
+        adamw.fused_adamw_int8_plain(want[0], grads[i], *want[1:], scalars, wd=wd, **hp)
+        if ctrl is not None:
+            adamw.fused_adamw_int8_plain(ctrl[0], grads[i], *ctrl[1:], scalars, wd=0.0, **hp)
+            decayed += 1
+            seen += not torch.equal(ctrl[0], want[0])
+        exact, codes, err, ok = k4_diff(f"K4 step leaf {i}", got, want, want[0].numel())
+        p_err = max(p_err, err)
+        agree += all(exact.values())
+        differing += sum(c[0] for c in codes.values())
+        worst = max([worst] + [c[1] for c in codes.values()])
+        if not ok:
+            bad.append((i, exact, codes))
+    n = sum(views[i][0].numel() for i in grads)
+    log(f"K4 over one memory-knob step in one table call ({len(grads)} leaves with a "
+        f"gradient, {n} params, {len(views) - len(grads)} without) against the plain "
+        f"version leaf by leaf: {agree} leaves with p and scales bit-identical, "
+        f"p max abs err {p_err:.3e}, codes differing "
+        f"{differing} (max {worst} step), weight decay seen on {seen} of {decayed} "
+        f"decayed leaves [{card}]")
+    if bad:
+        raise AssertionError(f"K4 over one step disagrees with its plain version: {bad[:8]}")
+    if decayed and not seen:
+        raise AssertionError("K4 over one step: the p check cannot see weight decay")
+    return p_err
+
+
 def time_k4_step(card: str, opt) -> dict:
     """The K4 work of one memory-knob step, on the slice's own leaves and
-    last gradients, after the slice's checks (each call updates the
-    parameters again; timing only): by CUDA-graph replay (device time), the
-    optimizer's table step over every int8 leaf with a gradient where the
-    tree has one, else one fused_adamw_int8 call per leaf as that tree's
-    step makes them; and FusedAdamW.step() as a whole, one call per event
-    pair (host work included: the gradient norm, the step scalars, K4, the
-    small leaves in fp32); beside the bound of those leaves."""
+    last gradients, after the slice's checks: the optimizer's table step
+    over every int8 leaf with a gradient where the tree has one, else one
+    fused_adamw_int8 call per leaf as that tree's step makes them; first
+    held against the plain version (check_k4_step), then timed (each call
+    updates the parameters again) by CUDA-graph replay (device time), and
+    FusedAdamW.step() as a whole, one call per event pair (host work
+    included: the gradient norm, the step scalars, K4, the small leaves in
+    fp32); beside the bound of those leaves."""
     import torch
 
     from vista_slam_tpu_torch.kernels import adamw
@@ -1248,9 +1314,10 @@ def time_k4_step(card: str, opt) -> dict:
             for p, g, *state, wd in views:
                 adamw.fused_adamw_int8(p, g, *state, scalars, wd=wd, b1=opt.b1, b2=opt.b2,
                                        eps=opt.eps)
+    p_err = check_k4_step(card, opt, grads, scalars, work)
     n = sum(opt.params[i].numel() for i in live)
     b_ms, b_by = k4_bound(n)
-    t = {"step_graph_ms": graph_ms(work, reps=10, inner=2),
+    t = {"step_max_abs_err": p_err, "step_graph_ms": graph_ms(work, reps=10, inner=2),
          "step_event_ms": cuda_ms(opt.step, warmup=2, reps=10), "step_bound_ms": b_ms}
     log(f"K4 over one memory-knob step ({len(live)} leaves, {n} params): device ms "
         f"(CUDA-graph replay) {t['step_graph_ms']:.4f} vs bound {b_ms:.4f} ({b_by}; "
@@ -1349,7 +1416,8 @@ def main() -> int:
                          **k2_pair),
              "K3a": dict(k3["K3a"], library_ms=sdpa["K3a"], timed_at=f"bf16 q{list(K3_TIMED_AT)}"),
              "K3b": dict(k3["K3b"], library_ms=sdpa["K3b"], timed_at=f"bf16 q{list(K3_TIMED_AT)}"),
-             "K4": dict(max_abs_err=k4["max_abs_err"], ms=k4["ms"], plain_ms=k4["plain_ms"],
+             "K4": dict(max_abs_err=max(k4["max_abs_err"], knob["k4_step"]["step_max_abs_err"]),
+                        ms=k4["ms"], plain_ms=k4["plain_ms"],
                         library_ms=None, timed_at=f"leaf of {k4['n']} params",
                         graph_ms=k4["graph_ms"], graph_ms_by_leaf=k4["graph_ms_by_leaf"],
                         **knob["k4_step"]),

@@ -285,6 +285,26 @@ def test_int8_fused_optimizer_matches_jax_over_3_steps():
             assert rel > 1e-2, (k, rel)
 
 
+def test_int8_fused_step_refuses_a_parameter_moved_since_init():
+    """K4's table holds each int8 leaf's storage from init: a parameter
+    whose storage was replaced afterwards makes step raise, not update the
+    old storage; init again binds the new one."""
+    rng = np.random.default_rng(12)
+    tree, grads = _tree_and_grads(rng, steps=1)
+    opt, _ = _port_run(tree, grads, "int8_fused")
+    names = list(tree)
+    k = names.index("dense")
+    params = opt.params
+    params[k].data = params[k].data.clone()
+    with pytest.raises(RuntimeError, match="replaced since init"):
+        opt.step()
+    opt.init(params, opt.decay, opt.layouts)
+    before = params[k].detach().clone()
+    opt.count = 3  # past the warm-up's lr 0
+    opt.step()
+    assert not torch.equal(params[k].detach(), before)
+
+
 @pytest.mark.parametrize("state_dtype", ["bf16", "int8"])
 def test_carrier_optimizer_matches_jax_over_3_steps(state_dtype):
     """The JAX package's XLA carriers (optax chain of clip_by_global_norm

@@ -34,14 +34,13 @@
 // into shared memory along r with cp.async (64-byte runs, padded against
 // bank conflicts) and the codes along o (256-byte runs, 4 bytes a copy);
 // updates each element in JAX order from shared memory; and writes p back
-// along r. (Tiles of 32 or more along r were slower on the card: the
-// codes' runs shorten as g's lengthen.) The blocks are persistent (as many
-// as fit the card at once) and keep two stages of shared memory: each
-// starts the copies of its next tile before it computes the current one,
-// so its copies overlap its own arithmetic, which with IEEE division,
-// square root and log is about as long as the copies. exp((c - 127) k)
-// takes one of 128 values, so a shared table (made with expf) stands in
-// for it.
+// along r. (Tiles of 32 or more along r were no faster on the card.) The
+// blocks are persistent (as many as fit the card at once) and keep two
+// stages of shared memory: each starts the copies of its next tile before
+// it computes the current one, so its copies overlap its own arithmetic,
+// which with IEEE division, square root and log is about as long as the
+// copies. exp((c - 127) k) takes one of 128 values, so a shared table
+// (made with expf) stands in for it.
 //
 // What still holds it back (PERF.md): over a whole step it runs at about
 // 3x its bound; pass 2 is bound by its arithmetic (three IEEE divisions
@@ -72,6 +71,8 @@
 // (pointers, layout, tile and row offsets, weight decay) is a kernel
 // parameter (__grid_constant__, up to 32,764 bytes from CUDA 12.1), so a
 // launch needs no copy to the device and can be captured in a CUDA graph.
+// Every call passes the whole CAP-leaf table, however few leaves it holds,
+// so a one-leaf call runs the same kernels as the optimizer's step.
 // A block finds its first leaf by binary search and steps from there; a
 // tile computes its columns' JAX bases once (one div/mod a column), and
 // its elements step from those.
@@ -100,7 +101,6 @@ constexpr int MAX_LG_TR = 4;                  // the tile's extent along r: at m
 constexpr int MAX_TR = 1 << MAX_LG_TR;
 constexpr int SMEM_FLOATS = TILE / 8 * 9;    // max over TR of TO * (TR + 1), TR = 1 or >= 8
 constexpr int MAX_SLOTS = 2 * MAX_TR;         // max over TR of TR * slots a column
-constexpr int SMALL_CAP = 8;
 constexpr int CAP = 360;                      // leaves a launch takes (88 bytes each)
 
 struct Leaf {
@@ -121,9 +121,8 @@ struct Leaf {
 };
 static_assert(sizeof(Leaf) == 88, "the ctypes mirror in kernels/adamw.py");
 
-template <int N>
 struct Table {
-  Leaf leaf[N];
+  Leaf leaf[CAP];
   int n;
 };
 
@@ -133,11 +132,10 @@ struct Hyper {
   unsigned* nmax;
   float b1, one_minus_b1, b2, one_minus_b2, eps, k;
 };
-static_assert(sizeof(Table<CAP>) + sizeof(Hyper) + sizeof(int) <= 32764,
+static_assert(sizeof(Table) + sizeof(Hyper) + sizeof(int) <= 32764,
               "kernel parameters of at most 32,764 bytes");
 
-template <int N>
-__device__ __forceinline__ int find_leaf(const Table<N>& t, int key, bool by_row) {
+__device__ __forceinline__ int find_leaf(const Table& t, int key, bool by_row) {
   int lo = 0, hi = t.n - 1;
   while (lo < hi) {
     const int mid = (lo + hi + 1) >> 1;
@@ -191,8 +189,7 @@ struct Tile {
 
 // Tile ``tile`` of the launch; ``leaf`` is a leaf at or before its own (the
 // blocks walk the tiles upwards, so the search is a step or two).
-template <int N>
-__device__ __forceinline__ Tile tile_of(const Table<N>& t, int tile, int leaf) {
+__device__ __forceinline__ Tile tile_of(const Table& t, int tile, int leaf) {
   Tile x;
   while (leaf + 1 < t.n && t.leaf[leaf + 1].tile0 <= tile) ++leaf;
   x.leaf = leaf;
@@ -239,8 +236,8 @@ struct alignas(16) Stage {
 // The first half of a tile's copies (one cp.async group per thread): g
 // (and p) along r; the columns' JAX bases (one div/mod a column); the
 // maxima zeroed (pass 1).
-template <int N, bool P1>
-__device__ __forceinline__ void prefetch_a(const Table<N>& t, const Tile& x, Stage<P1>& s) {
+template <bool P1>
+__device__ __forceinline__ void prefetch_a(const Table& t, const Tile& x, Stage<P1>& s) {
   const Leaf& L = t.leaf[x.leaf];
   const int TR = 1 << x.lg_tr;
   const float* const g = L.g;
@@ -271,8 +268,8 @@ __device__ __forceinline__ void prefetch_a(const Table<N>& t, const Tile& x, Sta
 // codes along o (4 bytes a copy where O allows, else one byte a load), the
 // old scales of the rows the columns touch and, in pass 2, the new row
 // maxima.
-template <int N, bool P1>
-__device__ __forceinline__ void prefetch_b(const Table<N>& t, const Hyper& h, const Tile& x,
+template <bool P1>
+__device__ __forceinline__ void prefetch_b(const Table& t, const Hyper& h, const Tile& x,
                                            Stage<P1>& s) {
   const Leaf& L = t.leaf[x.leaf];
   const int TR = 1 << x.lg_tr, TO = 1 << x.lg_to;
@@ -320,8 +317,8 @@ __device__ __forceinline__ void prefetch_b(const Table<N>& t, const Hyper& h, co
 // current tile's (all but the newest group) and meet at a barrier; start
 // the next tile's second copies; then the caller computes the current
 // tile while both are in flight.
-template <int N, bool P1>
-__device__ __forceinline__ void next_stage(const Table<N>& t, const Hyper& h, int tile,
+template <bool P1>
+__device__ __forceinline__ void next_stage(const Table& t, const Hyper& h, int tile,
                                            int tiles, Tile& x, Tile& xn, Stage<P1>& sn) {
   const int tn = tile + (int)gridDim.x;
   if (tn < tiles) {
@@ -336,8 +333,8 @@ __device__ __forceinline__ void next_stage(const Table<N>& t, const Hyper& h, in
   else asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-template <int N, bool P1>
-__device__ __forceinline__ Tile first_tile(const Table<N>& t, const Hyper& h, Stage<P1>& s,
+template <bool P1>
+__device__ __forceinline__ Tile first_tile(const Table& t, const Hyper& h, Stage<P1>& s,
                                            float* ex) {
   const Tile x = tile_of(t, blockIdx.x, find_leaf(t, blockIdx.x, false));
   prefetch_a(t, x, s);
@@ -374,9 +371,8 @@ constexpr int fitting(int stage_bytes) {
   return 232448 / (2 * stage_bytes + 1024) < 4 ? 232448 / (2 * stage_bytes + 1024) : 4;
 }
 
-template <int N>
 __global__ void __launch_bounds__(THREADS, fitting(sizeof(Stage<true>)))
-adamw_int8_pass1(const __grid_constant__ Table<N> t, const Hyper h, int tiles) {
+adamw_int8_pass1(const __grid_constant__ Table t, const Hyper h, int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   Stage<true>* const st = reinterpret_cast<Stage<true>*>(smem);
   __shared__ float ex[128];
@@ -459,9 +455,8 @@ adamw_int8_pass1(const __grid_constant__ Table<N> t, const Hyper h, int tiles) {
   }
 }
 
-template <int N>
 __global__ void __launch_bounds__(THREADS, fitting(sizeof(Stage<false>)))
-adamw_int8_pass2(const __grid_constant__ Table<N> t, const Hyper h, int tiles) {
+adamw_int8_pass2(const __grid_constant__ Table t, const Hyper h, int tiles) {
   extern __shared__ __align__(16) unsigned char smem[];
   Stage<false>* const st = reinterpret_cast<Stage<false>*>(smem);
   __shared__ float ex[128];
@@ -515,9 +510,8 @@ adamw_int8_pass2(const __grid_constant__ Table<N> t, const Hyper h, int tiles) {
 }
 
 // The new scales into mu_s / nu_s, the scratch back to 0: one thread a row.
-template <int N>
 __global__ void __launch_bounds__(THREADS)
-adamw_int8_finish(const __grid_constant__ Table<N> t, const Hyper h, int total_rows) {
+adamw_int8_finish(const __grid_constant__ Table t, const Hyper h, int total_rows) {
   const int row = blockIdx.x * THREADS + threadIdx.x;
   if (row >= total_rows) return;
   const Leaf& L = t.leaf[find_leaf(t, row, true)];
@@ -535,7 +529,6 @@ struct Grid {
   int pass1, pass2;
 };
 
-template <int N>
 cudaError_t grid_of(Grid& g) {
   static Grid grids[64];
   static bool ready[64];
@@ -544,14 +537,14 @@ cudaError_t grid_of(Grid& g) {
   if (err != cudaSuccess || dev >= 64) return err ? err : cudaErrorInvalidDevice;
   if (!ready[dev]) {
     const int s1 = 2 * sizeof(Stage<true>), s2 = 2 * sizeof(Stage<false>);
-    if ((err = cudaFuncSetAttribute(adamw_int8_pass1<N>,
+    if ((err = cudaFuncSetAttribute(adamw_int8_pass1,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, s1)) ||
-        (err = cudaFuncSetAttribute(adamw_int8_pass2<N>,
+        (err = cudaFuncSetAttribute(adamw_int8_pass2,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, s2)) ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b1, adamw_int8_pass1<N>,
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b1, adamw_int8_pass1,
                                                              THREADS, s1)) ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b2, adamw_int8_pass2<N>,
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b2, adamw_int8_pass2,
                                                              THREADS, s2)))
       return err;
     if (b1 < 1 || b2 < 1) return cudaErrorInvalidConfiguration;
@@ -562,22 +555,21 @@ cudaError_t grid_of(Grid& g) {
   return cudaSuccess;
 }
 
-template <int N>
 int launch(const Leaf* leaves, int n, int tiles, int total_rows, const Hyper& h,
            cudaStream_t stream) {
   Grid g;
-  cudaError_t err = grid_of<N>(g);
+  cudaError_t err = grid_of(g);
   if (err != cudaSuccess) return err;
-  Table<N> t;
+  Table t;
   memcpy(t.leaf, leaves, n * sizeof(Leaf));
   t.n = n;
-  adamw_int8_pass1<N><<<min(tiles, g.pass1), THREADS, 2 * sizeof(Stage<true>), stream>>>(
+  adamw_int8_pass1<<<min(tiles, g.pass1), THREADS, 2 * sizeof(Stage<true>), stream>>>(
       t, h, tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  adamw_int8_pass2<N><<<min(tiles, g.pass2), THREADS, 2 * sizeof(Stage<false>), stream>>>(
+  adamw_int8_pass2<<<min(tiles, g.pass2), THREADS, 2 * sizeof(Stage<false>), stream>>>(
       t, h, tiles);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  adamw_int8_finish<N><<<(total_rows + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
+  adamw_int8_finish<<<(total_rows + THREADS - 1) / THREADS, THREADS, 0, stream>>>(
       t, h, total_rows);
   return cudaGetLastError();
 }
@@ -618,6 +610,5 @@ extern "C" int adamw_int8_many(const void* table, int n, int tiles, int total_ro
   const Hyper h{static_cast<const float*>(scalars), static_cast<unsigned*>(amax),
                 static_cast<unsigned*>(nmax), b1, one_minus_b1, b2, one_minus_b2, eps, k};
   const auto s = static_cast<cudaStream_t>(stream);
-  return n <= SMALL_CAP ? launch<SMALL_CAP>(leaves, n, tiles, total_rows, h, s)
-                        : launch<CAP>(leaves, n, tiles, total_rows, h, s);
+  return launch(leaves, n, tiles, total_rows, h, s);
 }

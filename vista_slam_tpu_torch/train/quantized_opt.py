@@ -143,11 +143,17 @@ class FusedAdamW(_AdamWBase):
         self.state_dtype = state_dtype
         self.int8: Int8Table | None = None  # K4's table of the int8 leaves
         self.int8_index: list[int] = []     # the parameter of each of its leaves
+        self.int8_ptrs: list[int] = []      # and its storage at init
 
     def init(self, params, decay, layouts) -> None:
+        """As ``_AdamWBase.init``; K4's table then holds the storage of each
+        int8 leaf's parameter and state. ``step`` raises if a parameter's
+        storage was replaced since (``p.data = ...``, ``module.to(...)``):
+        call ``init`` again after that. The state is only updated in place."""
         super().init(params, decay, layouts)
         self.int8_index = [i for i, m in enumerate(self.moments)
                            if isinstance(m, FusedInt8Leaf)]
+        self.int8_ptrs = [self.params[i].data_ptr() for i in self.int8_index]
         self.int8 = Int8Table(
             [(self.params[i].data.permute(self.layouts[i]), *self.moments[i],
               self.weight_decay if self.decay[i] else 0.0) for i in self.int8_index],
@@ -180,6 +186,12 @@ class FusedAdamW(_AdamWBase):
         _, lr, c1, c2 = scalars.unbind()
         b1, b2, eps = self.b1, self.b2, self.eps
         if self.int8 is not None:
+            moved = [i for i, ptr in zip(self.int8_index, self.int8_ptrs)
+                     if self.params[i].data_ptr() != ptr]
+            if moved:
+                raise RuntimeError(f"FusedAdamW: the storage of parameters {moved} was "
+                                   "replaced since init; K4's table would update the old "
+                                   "one: call init again")
             # p and g are both contiguous: their views address alike
             self.int8.step([grads[i].permute(self.layouts[i]) if i in grads else None
                             for i in self.int8_index], scalars)
