@@ -48,6 +48,11 @@ Phases, each printed on its own lines; any failure exits non-zero:
                beside its backward at K2's shape, the port's whole flash
                backward (delta, K2a, K2b) timed the same way, through
                torch.autograd.grad, and both again by CUDA-graph replay;
+  6a. dispatch — ops/attention.py's use_flash=None threshold measured:
+               mha_plain (fp32 inside, TF32 off) against K1 on bf16
+               [B,12,N,64] at N = 196 (the 224x224 encoder) and the
+               decoder's 197 ... 769, B = 1 and 16, by CUDA-graph replay, and
+               the N from which K1 is faster;
   7. SVD     — the pose head's 9D SVD projection on the card against a
                float64 host reference and the Newton ('9D_stable') variant;
   8. agree   — a small fp32 STA forward on the card (kernel path) against
@@ -92,6 +97,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
                the first batch's loss forward only through K3a, K1, SDPA
                and K3's plain versions in bf16 and in fp32, their relative
                gaps printed beside the launch counts (a reading, not gated).
+ 13. trainer — train/trainer.py's Trainer at full width with
+               train_fast.yaml's hyper-parameters and 224x224 model and the
+               two memory knobs (K3a, K3b, K4), batch 8 with 3 supports over
+               the synthetic scene given as train_ds/test_ds, into a
+               temporary directory: Trainer.fit over 2 epochs of 3 steps and
+               one test batch each (losses, ms per step, test loss and alpha,
+               peak memory, checkpoint bytes and save seconds); a fresh
+               Trainer resumed from epoch 0's checkpoint, bit-identical to
+               the file with K4's table on live storage, training epoch 1
+               (its losses beside the first run's); 2 steps with remat from
+               the same weights and batches (step-1 loss within 1e-3, K3a
+               twice a step, lower peak memory); each run's K3a/K3b/K4
+               launches equal to those derived, with no K1/K2/K5 and no
+               plain or flash attention.
 Each launch count is set to 0 just before a path runs and read just after.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the port next to
@@ -101,6 +120,7 @@ this file, it fails and prints no result.
 from __future__ import annotations
 
 import functools
+import itertools
 import json
 import math
 import statistics
@@ -118,6 +138,25 @@ HIGHRES = {
     "model": {"img_size": [384, 512], "use_flash": True},
 }
 N_FRAMES = 11  # stride-1 keyframing starts at frame 1: 10 keyframes
+
+# configs/train_fast.yaml's hyper-parameters and model section (its dataset
+# specs name data outside the repository) with the two memory knobs,
+# attn_fused_train and int8_fused; inlined so that the run needs no YAML
+# parser; tests/test_torch_trainer.py holds the two equal
+TRAINER = {
+    "batch_size": 8, "epochs": 200, "lr": 1.5e-5, "min_lr": 1.0e-6, "weight_decay": 0.05,
+    "warmup_epochs": 10, "clip": 1.0, "neighbor_num": 1, "loop_num": 1, "alpha_c2f": True,
+    "alpha_init": 0.4, "seed": 0, "opt_state_dtype": "int8_fused",
+    "model": {"gelu_approx": True, "attn_fused_train": True},
+}
+TRAINER_EPOCHS = 2        # of train_fast.yaml's 200
+TRAINER_STEPS = 3         # per epoch: 24 view graphs at batch 8
+TRAINER_TEST_BATCHES = 1  # per test epoch: 8 view graphs
+# the 224x224 encoder's tokens and the decoder's (patches + the pose token)
+# from 224x224 to 384x512, at batches of one pair and of 8 pairs (both
+# directions)
+CROSSOVER_N = (196, 197, 257, 385, 513, 769)
+CROSSOVER_B = (1, 16)
 
 K1_SHAPES = (  # (q shape, Nk) at the main paths' calls
     ((1, 16, 768, 64), 768),    # SLAM encoder, one frame
@@ -755,12 +794,11 @@ def k4_compare(tag: str, mine, ref, n: int) -> float:
 
 def check_k4(card: str) -> dict:
     """K4 against its plain version on the card, on each leaf of k4_leaves
-    and, where the tree has the multi-leaf entry, on all of them in one
-    call (k4_compare). At lr 1.5e-5 the whole update is ~3e-6 of max|p| and
-    weight decay only a part of that, so a tolerance on p would let a wrong
-    update through; a control run of the plain version without weight
-    decay shows that the check sees that share. Two calls are
-    bit-identical. Times per leaf: one call per event pair (host work
+    and on all of them in one multi-leaf call (k4_compare). At lr 1.5e-5
+    the whole update is ~3e-6 of max|p| and weight decay only a part of
+    that, so a tolerance on p would let a wrong update through; a control
+    run of the plain version without weight decay shows that the check
+    sees that share. Two calls are bit-identical. Times per leaf: one call per event pair (host work
     included; the JSON's "ms", at the conv leaf) and by CUDA-graph replay
     (graph_ms, device time), beside the bound."""
     import torch
@@ -802,9 +840,6 @@ def check_k4(card: str) -> dict:
                       "bound_by": b_by, "n": n, "graph_ms": graphs[name]}
         result["max_abs_err"] = max(result["max_abs_err"], p_err)
     result["graph_ms_by_leaf"] = graphs
-    if not hasattr(adamw, "fused_adamw_int8_many"):
-        log("K4 multi-leaf call: not in this tree")
-        return result
     # every leaf of the list in one call, the last one with no weight decay
     # (p and the state were not touched since the plain version read them)
     leaves, refs = [], []
@@ -1163,21 +1198,19 @@ def run_train_slice(card: str, preset: str) -> dict:
         log(f"{tag}: optimizer state of the {n_fused} params on K4: {int8} bytes of int8 "
             f"codes + fp32 scales, against {4 * n_fused} bytes of bf16 moments "
             f"({int8 / (4 * n_fused):.4f} of them; {n_fused // QBLOCK} rows)")
-        if getattr(opt, "int8", None) is not None:  # K4's own, apart from the state
-            log(f"{tag}: K4's row-maxima scratch {opt.int8.scratch.numel() * 4} bytes on "
-                f"the card; its leaf table {len(opt.int8.entries)} x "
-                f"{ctypes.sizeof(adamw._Leaf)} bytes on the host (kernel parameters)")
+        # K4's own, apart from the state
+        log(f"{tag}: K4's row-maxima scratch {opt.int8.scratch.numel() * 4} bytes on "
+            f"the card; its leaf table {len(opt.int8.entries)} x "
+            f"{ctypes.sizeof(adamw._Leaf)} bytes on the host (kernel parameters)")
     # the reference's unused skip unit gets no gradient and no update
     with_grad = sum("refinenet4.resConfUnit1" not in n for n, _ in fused)
     per_step = 2 * (cfg.enc_depth + cfg.dec_depth)  # attention calls per step
     expected = {k: 0 for k in launch_counts()}
     for k in (fwd, *bwd):
         expected[k] = per_step * TRAIN_STEPS
-    # K5, and K4 before its multi-leaf form: one launch per leaf with a
-    # gradient; K4 now: its passes per step, whatever the leaf count
-    per_opt_step = with_grad
-    if preset == "memory_knob" and hasattr(adamw, "int8_launches"):
-        per_opt_step = adamw.int8_launches(with_grad)
+    # K5: one launch per leaf with a gradient; K4: its passes per step,
+    # whatever the leaf count
+    per_opt_step = adamw.int8_launches(with_grad) if preset == "memory_knob" else with_grad
     expected[opt_k] = per_opt_step * TRAIN_STEPS
     route = "flash" if preset == "highres" else "fused"
     expected_calls = {"flash": 0, "plain": 0, "fused": 0, route: per_step * TRAIN_STEPS}
@@ -1230,8 +1263,8 @@ def run_train_slice(card: str, preset: str) -> dict:
 
 def check_k4_step(card: str, opt, grads: dict, scalars, work) -> float:
     """The K4 work of one memory-knob step in the form the path runs it
-    (``work``: on this tree the optimizer's table over every int8 leaf, one
-    launch a pass), once on the slice's own parameters and state, against
+    (``work``: the optimizer's table over every int8 leaf, one launch a
+    pass), once on the slice's own parameters and state, against
     fused_adamw_int8_plain leaf by leaf on copies of what it read: per leaf
     k4_diff's agreement, each leaf's weight decay from the optimizer (a
     control without it must differ on the decayed leaves), and the leaves
@@ -1285,35 +1318,25 @@ def check_k4_step(card: str, opt, grads: dict, scalars, work) -> float:
 def time_k4_step(card: str, opt) -> dict:
     """The K4 work of one memory-knob step, on the slice's own leaves and
     last gradients, after the slice's checks: the optimizer's table step
-    over every int8 leaf with a gradient where the tree has one, else one
-    fused_adamw_int8 call per leaf as that tree's step makes them; first
-    held against the plain version (check_k4_step), then timed (each call
-    updates the parameters again) by CUDA-graph replay (device time), and
-    FusedAdamW.step() as a whole, one call per event pair (host work
-    included: the gradient norm, the step scalars, K4, the small leaves in
-    fp32); beside the bound of those leaves."""
+    over every int8 leaf with a gradient; first held against the plain
+    version (check_k4_step), then timed (each call updates the parameters
+    again) by CUDA-graph replay (device time), and FusedAdamW.step() as a
+    whole, one call per event pair (host work included: the gradient norm,
+    the step scalars, K4, the small leaves in fp32); beside the bound of
+    those leaves."""
     import torch
 
-    from vista_slam_tpu_torch.kernels import adamw
     from vista_slam_tpu_torch.train.quantized_opt import FusedInt8Leaf
 
     live = [i for i, (p, m) in enumerate(zip(opt.params, opt.moments))
             if isinstance(m, FusedInt8Leaf) and p.grad is not None]
     grads = {i: opt.params[i].grad.contiguous().permute(opt.layouts[i]) for i in live}
     scalars = torch.tensor([0.7, 1.5e-5, 1 - 0.9 ** 3, 1 - 0.95 ** 3], device="cuda")
-    if getattr(opt, "int8", None) is not None:
-        table, by_leaf = opt.int8, [grads.get(i) for i in opt.int8_index]
+    table, by_leaf = opt.int8, [grads.get(i) for i in opt.int8_index]
 
-        def work():
-            table.step(by_leaf, scalars)
-    else:
-        views = [(opt.params[i].data.permute(opt.layouts[i]), grads[i], *opt.moments[i],
-                  opt.weight_decay if opt.decay[i] else 0.0) for i in live]
+    def work():
+        table.step(by_leaf, scalars)
 
-        def work():
-            for p, g, *state, wd in views:
-                adamw.fused_adamw_int8(p, g, *state, scalars, wd=wd, b1=opt.b1, b2=opt.b2,
-                                       eps=opt.eps)
     p_err = check_k4_step(card, opt, grads, scalars, work)
     n = sum(opt.params[i].numel() for i in live)
     b_ms, b_by = k4_bound(n)
@@ -1324,6 +1347,287 @@ def time_k4_step(card: str, opt) -> dict:
         f"{t['step_graph_ms'] / b_ms:.2f}x); FusedAdamW.step() one call per event pair "
         f"{t['step_event_ms']:.4f} ms (host work included) [{card}]")
     return t
+
+
+def time_dispatch_crossover(card: str) -> dict:
+    """Where K1 overtakes the plain attention that ops/attention.py::mha
+    runs below its use_flash=None threshold: mha_plain as the 224x224 SLAM
+    default runs it (bf16 q, k, v cast up to fp32 inside, TF32 off) against
+    K1 on the same inputs, [B, 12, N, 64] at the decoder's token counts, by
+    CUDA-graph replay (device time). Returns, per batch, the smallest N of
+    the table from which K1 is faster at every larger N (None if at no N)."""
+    import torch
+
+    from vista_slam_tpu_torch.kernels import flash_attn as fa
+    from vista_slam_tpu_torch.ops.attention import mha_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    rows, crossover = [], {}
+    for b in CROSSOVER_B:
+        faster = []
+        for n in CROSSOVER_N:
+            q, k, v = (torch.randn((b, 12, n, 64), generator=gen, device="cuda")
+                       .to(torch.bfloat16) for _ in range(3))
+            plain = graph_ms(lambda: mha_plain(q, k, v, 0.125))
+            k1 = graph_ms(lambda: fa.flash_attention(q, k, v, 0.125))
+            rows.append(f"B={b} N={n}: plain {plain:.4f} ms, K1 {k1:.4f} ms, "
+                        f"plain / K1 {plain / k1:.2f}")
+            faster.append(k1 < plain)
+        from_n = [n for i, n in enumerate(CROSSOVER_N) if all(faster[i:])]
+        crossover[b] = from_n[0] if from_n else None
+    log("dispatch crossover, device ms by CUDA-graph replay of mha_plain (fp32 inside, "
+        f"TF32 off) and K1 on bf16 [B,12,N,64] [{card}]:\n  " + "\n  ".join(rows))
+    log(f"dispatch crossover: K1 faster from N = {crossover} (by batch; "
+        f"ops/attention.py takes flash from 512 when use_flash is None) [{card}]")
+    return crossover
+
+
+def trainer_graphs(n: int, seed: int):
+    """n view graphs of the synthetic box scene at 224x224 (focal 0.75 W, as
+    train/finetune.py renders it), each drawn once, as a dataset: every run
+    of the trainer phase reads the same batches (SyntheticSceneDataset
+    draws its neighbours from one generator as it is read)."""
+    from vista_slam_tpu_torch.datasets.combinators import ComposableDataset
+    from vista_slam_tpu_torch.datasets.synthetic_scene import SyntheticSceneDataset
+
+    class Graphs(ComposableDataset):
+        def __init__(self, graphs):
+            self.graphs = graphs
+
+        def __len__(self):
+            return len(self.graphs)
+
+        def __getitem__(self, idx):
+            return self.graphs[idx[0] if isinstance(idx, tuple) else idx]
+
+    ds = SyntheticSceneDataset(n_frames=n, hw=(224, 224), focal=168.0, seed=seed,
+                               neighbor_num=TRAINER["neighbor_num"],
+                               loop_num=TRAINER["loop_num"])
+    return Graphs([ds[i] for i in range(n)])
+
+
+def run_trainer(card: str) -> dict:
+    """Phase 13: train/trainer.py's Trainer at full width on the card with
+    TRAINER (train_fast.yaml's 224x224 model and hyper-parameters, K3a, K3b
+    and K4), the first TRAINER_EPOCHS epochs of its 200-epoch schedule, of
+    TRAINER_STEPS steps each, over the synthetic
+    scene given as train_ds/test_ds, into a temporary directory removed at
+    the end. Run 1: Trainer.fit (per-step losses and ms, test loss and alpha
+    per epoch, peak memory, checkpoint bytes and save seconds). Run 2: a
+    fresh Trainer resumes from epoch 0's checkpoint (load seconds), whose
+    parameters, optimizer state and step must be bit-identical to the file
+    and whose K4 table must still point at live storage; it trains epoch 1
+    (its losses beside run 1's, a reading). Run 3: 2 steps with remat from
+    the same weights and batches: the step-1 loss within 1e-3 of run 1's,
+    K3a twice a step, peak memory below run 1's. Each run's K3a/K3b/K4
+    launches (counts set to 0 just before it) must equal those derived
+    from the model and the epochs, with no K1, K2 or K5 and every
+    attention on the fused path. One trainer at a time on the card."""
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from vista_slam_tpu_torch.kernels import adamw
+    from vista_slam_tpu_torch.ops import attention
+    from vista_slam_tpu_torch.train.quantized_opt import FusedInt8Leaf
+    from vista_slam_tpu_torch.train.trainer import TrainConfig, Trainer, _alpha_schedule
+
+    t_phase = time.perf_counter()
+    B = TRAINER["batch_size"]
+    train_ds = trainer_graphs(B * TRAINER_STEPS, 0)
+    test_ds = trainer_graphs(B * TRAINER_TEST_BATCHES, 1)
+    log(f"trainer: {len(train_ds)} train and {len(test_ds)} test view graphs at 224x224 "
+        f"rendered in {time.perf_counter() - t_phase:.2f} s (host) [{card}]")
+    root = tempfile.mkdtemp(prefix="chip_smoke_trainer_")
+
+    def build(name: str, **model) -> Trainer:
+        """A Trainer on train_fast's 200-epoch schedule (its lr warm-up of
+        10 epochs), cut to its first TRAINER_EPOCHS epochs."""
+        cfg = TrainConfig(output_dir=os.path.join(root, name),
+                          **dict(TRAINER, model=dict(TRAINER["model"], **model)))
+        t = Trainer(cfg, device="cuda", train_ds=train_ds, test_ds=None if model else test_ds)
+        t.cfg = dataclasses.replace(cfg, epochs=TRAINER_EPOCHS)
+        return t
+
+    def instrument(t: Trainer) -> dict:
+        """Record each step's loss and ms and each checkpoint's bytes and
+        save seconds (the calls themselves unchanged)."""
+        rec = {"losses": [], "ms": [], "saves": []}
+        step, save = t.step_fn, t.save_checkpoint
+
+        def timed_step(batch, alpha):
+            t0 = time.perf_counter()
+            loss, details = step(batch, alpha)
+            rec["losses"].append(loss.item())
+            rec["ms"].append(1e3 * (time.perf_counter() - t0))
+            return loss, details
+
+        def timed_save(epoch, best, name="checkpoints"):
+            t0 = time.perf_counter()
+            path = save(epoch, best, name)
+            rec["saves"].append((f"{name}/{epoch}.pt", os.path.getsize(path),
+                                 round(time.perf_counter() - t0, 3)))
+            return path
+
+        t.step_fn, t.save_checkpoint = timed_step, timed_save
+        return rec
+
+    def derived(t: Trainer, steps: int, forwards: int, remat: bool = False) -> tuple:
+        """K3a/K3b/K4 launches and attention paths of `steps` train steps
+        and `forwards` test batches: 72 attention calls a forward (2 x 24
+        encoder blocks, 12 decoder blocks of 2), twice a step under remat;
+        K4 its passes a step over the int8 leaves with a gradient."""
+        c = t.model_cfg
+        per_fwd = 2 * (c.enc_depth + c.dec_depth)
+        names = [n for (n, _), m in zip(t.model.named_parameters(), t.optimizer.moments)
+                 if isinstance(m, FusedInt8Leaf)]
+        with_grad = sum("refinenet4.resConfUnit1" not in n for n in names)
+        want = {k: 0 for k in launch_counts()}
+        want["K3a"] = per_fwd * (steps * (2 if remat else 1) + forwards)
+        want["K3b"] = per_fwd * steps
+        want["K4"] = adamw.int8_launches(with_grad) * steps
+        return want, {"flash": 0, "plain": 0, "fused": want["K3a"]}
+
+    def check_counts(run: str, want: tuple) -> dict:
+        got = launch_counts(), dict(attention.CALLS)
+        log(f"trainer {run}: launches {got[0]} (derived {want[0]}), attention paths "
+            f"{got[1]} (derived {want[1]})")
+        if got != want:
+            raise AssertionError(f"trainer {run}: launches / paths {got}, derived {want}")
+        return got[0]
+
+    def free() -> None:
+        """Return a dropped trainer's memory to the card (its recording
+        wrappers and itself form a cycle: collect it)."""
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def rel(a: float, b: float) -> float:
+        return abs(a - b) / abs(b)
+
+    try:
+        totals = {k: 0 for k in launch_counts()}
+        # -- run 1: fit -----------------------------------------------------
+        t = build("run1")
+        t.init_state(resume=False)
+        rec1, sched = instrument(t), t.optimizer.schedule
+        want = derived(t, TRAINER_EPOCHS * TRAINER_STEPS, TRAINER_EPOCHS * TRAINER_TEST_BATCHES)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        t.fit()
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        peak1 = torch.cuda.max_memory_allocated() / 2**30
+        for k, v in check_counts("run 1 (fit)", want).items():
+            totals[k] += v
+        with open(os.path.join(root, "run1", "log.txt")) as f:
+            epochs = [json.loads(line) for line in f]
+        if not all(math.isfinite(x) for x in rec1["losses"] + [e["test_loss"] for e in epochs]):
+            raise AssertionError(f"trainer run 1: non-finite losses {rec1['losses']}, "
+                                 f"test {[e['test_loss'] for e in epochs]}")
+        ms = statistics.median(rec1["ms"][1:])
+        log(f"trainer run 1: Trainer.fit, {TRAINER_EPOCHS} epochs of {TRAINER_STEPS} steps "
+            f"(batch {B}, 3 supports) and {TRAINER_TEST_BATCHES} test batch, in "
+            f"{fit_s:.2f} s; losses per step {rec1['losses']}; ms per step "
+            f"{[round(x, 2) for x in rec1['ms']]} (step 1 cold), median of steps 2-"
+            f"{len(rec1['ms'])} {ms:.2f} ms; lr per step "
+            f"{[float(sched(c)) for c in range(len(rec1['ms']))]}; test loss and alpha per epoch "
+            f"{[(e['test_loss'], e['alpha']) for e in epochs]}; peak device memory "
+            f"{peak1:.2f} GiB [{card}]")
+        log(f"trainer run 1: checkpoints (file, bytes, save s) {rec1['saves']} [{card}]")
+        ckpt0 = os.path.join(root, "run1", "checkpoints", "0.pt")
+        del t, sched
+        free()
+        os.remove(os.path.join(root, "run1", "checkpoints", f"{TRAINER_EPOCHS - 1}.pt"))
+        shutil.rmtree(os.path.join(root, "run1", "checkpoints_best"))
+
+        # -- run 2: resume from epoch 0's checkpoint --------------------------
+        os.makedirs(os.path.join(root, "run2", "checkpoints"))
+        try:
+            os.link(ckpt0, os.path.join(root, "run2", "checkpoints", "0.pt"))
+        except OSError:  # no hard links on this file system
+            shutil.copyfile(ckpt0, os.path.join(root, "run2", "checkpoints", "0.pt"))
+        t = build("run2")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.init_state(resume=True)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        saved = torch.load(ckpt0, map_location="cpu", weights_only=True)
+        model_sd, opt_sd = t.model.state_dict(), t.optimizer.state_dict()
+        same = {
+            "params": model_sd.keys() == saved["model"].keys() and all(
+                torch.equal(v.cpu(), saved["model"][k]) for k, v in model_sd.items()),
+            "optimizer": opt_sd["count"] == saved["optimizer"]["count"]
+            and opt_sd["state_dtype"] == saved["optimizer"]["state_dtype"]
+            and all(torch.equal(a.cpu(), b) for m, s in zip(opt_sd["moments"],
+                                                           saved["optimizer"]["moments"])
+                    for a, b in zip(m, s)),
+            "step": t.step == saved["step"] == TRAINER_STEPS,
+            "K4 table": t.optimizer.int8_ptrs == [t.optimizer.params[i].data_ptr()
+                                                  for i in t.optimizer.int8_index]}
+        del saved, model_sd, opt_sd
+        log(f"trainer run 2: resumed at epoch {t.start_epoch} from epoch 0's checkpoint in "
+            f"{load_s:.2f} s (Trainer.init_state, load in place); bit-identical to the "
+            f"file: {same} [{card}]")
+        if t.start_epoch != 1 or not all(same.values()):
+            raise AssertionError(f"trainer run 2: start epoch {t.start_epoch}, {same}")
+        rec2 = instrument(t)
+        want = derived(t, TRAINER_STEPS, TRAINER_TEST_BATCHES)
+        reset_counts()
+        t.fit()
+        torch.cuda.synchronize()
+        for k, v in check_counts("run 2 (resumed epoch 1)", want).items():
+            totals[k] += v
+        ref = rec1["losses"][TRAINER_STEPS:]
+        log(f"trainer run 2: epoch-1 losses {rec2['losses']}, run 1's {ref}, relative gaps "
+            f"{[f'{rel(a, b):.3e}' for a, b in zip(rec2['losses'], ref)]}; checkpoints "
+            f"{rec2['saves']} [{card}]")
+        if not all(math.isfinite(x) for x in rec2["losses"]):
+            raise AssertionError(f"trainer run 2: non-finite losses {rec2['losses']}")
+        del t
+        free()
+
+        # -- run 3: remat, 2 steps from the same weights and batches ------------
+        t = build("remat", remat=True)
+        t.init_state(resume=False)
+        t.loader.set_epoch(0)
+        batches = list(itertools.islice(t.loader, 2))
+        alpha = _alpha_schedule(t.cfg, 0)
+        want = derived(t, 2, 0, remat=True)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses3, ms3 = [], []
+        for b in batches:
+            t0 = time.perf_counter()
+            losses3.append(t.step_fn(b, alpha)[0].item())
+            ms3.append(1e3 * (time.perf_counter() - t0))
+        peak3 = torch.cuda.max_memory_allocated() / 2**30
+        for k, v in check_counts("run 3 (remat)", want).items():
+            totals[k] += v
+        gap = rel(losses3[0], rec1["losses"][0])
+        log(f"trainer run 3: remat, losses {losses3} (step 1 vs run 1's "
+            f"{rec1['losses'][0]!r}: relative gap {gap:.3e}, tol 1e-3); ms per step "
+            f"{[round(x, 2) for x in ms3]}; peak device memory {peak3:.2f} GiB against run "
+            f"1's {peak1:.2f} GiB [{card}]")
+        if not (math.isfinite(losses3[1]) and gap <= 1e-3 and peak3 < peak1):
+            raise AssertionError(f"trainer run 3 (remat): losses {losses3}, gap {gap}, "
+                                 f"peak {peak3} vs {peak1} GiB")
+        del t
+        free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"trainer: phase in {secs:.2f} s [{card}]")
+    return {"launches": totals, "ms_per_step": ms, "peak_gib": peak1,
+            "remat_peak_gib": peak3, "phase_s": secs}
 
 
 KERNELS = {  # name, source, the TPU kernel it replaces
@@ -1388,6 +1692,7 @@ def main() -> int:
     k3 = check_k3(card)
     k4 = check_k4(card)
     sdpa = time_sdpa(card)
+    time_dispatch_crossover(card)
     check_svd(card)
     check_small_agreement(card)
     check_train_agree(card, "highres")
@@ -1397,6 +1702,8 @@ def main() -> int:
     train = run_train_slice(card, "highres")
     torch.cuda.empty_cache()
     knob = run_train_slice(card, "memory_knob")
+    torch.cuda.empty_cache()
+    trainer = run_trainer(card)
 
     bounds = {**{k: v for k, v in attn_bounds(K1_TIMED_AT, 769, 2).items() if k == "K1"},
               **{k: v for k, v in attn_bounds(K2_TIMED_AT, 769, 2).items() if k != "K1"},
@@ -1426,7 +1733,8 @@ def main() -> int:
                         graph_ms=k5["graph_ms"])}
     by_path = {k: {"slam": slam_launches if k == "K1" else 0,
                    "train": train["launches"][k],
-                   "train_memory_knob": knob["launches"][k]} for k in KERNELS}
+                   "train_memory_knob": knob["launches"][k],
+                   "trainer": trainer["launches"][k]} for k in KERNELS}
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
         "replaces": KERNELS[k][2], "launches": sum(by_path[k].values()),

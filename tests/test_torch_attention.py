@@ -149,10 +149,25 @@ def test_mha_dispatch_counts_paths():
     before = dict(attention.CALLS)
     a = attention.mha(tq, tk, tv, 0.125, use_flash=True)
     b = attention.mha(tq, tk, tv, 0.125, use_flash=False)
-    attention.mha(tq, tk, tv, 0.125)  # None: 40 < 512 tokens -> plain
+    attention.mha(tq, tk, tv, 0.125)  # None: 40 < FLASH_MIN_TOKENS -> plain
     assert attention.CALLS["flash"] - before["flash"] == 1
     assert attention.CALLS["plain"] - before["plain"] == 2
     _assert_close(a, b.numpy(), 2e-6)
+
+
+@pytest.mark.parametrize("n,fused_train,path", [
+    (195, False, "plain"), (196, False, "flash"), (197, False, "flash"),
+    (196, True, "fused"), (511, True, "fused"), (512, True, "flash")])
+def test_mha_use_flash_none_takes_the_measured_threshold(n, fused_train, path):
+    """use_flash=None: flash from FLASH_MIN_TOKENS (the H100's crossover
+    against mha_plain) without the fused training path; with it, the JAX
+    package's 512, so the memory-knob path keeps K3 below 512 tokens."""
+    assert (attention.FLASH_MIN_TOKENS, attention.FUSED_FLASH_MIN_TOKENS) == (196, 512)
+    q = torch.zeros((1, 1, n, 64))
+    before = dict(attention.CALLS)
+    attention.mha(q, q, q, 0.125, fused_train=fused_train)
+    assert {p: attention.CALLS[p] - before[p] for p in before} == \
+        {p: int(p == path) for p in before}
 
 
 def test_flash_wrapper_refuses_non_cpu_non_cuda_tensors():

@@ -75,6 +75,86 @@ def test_run_sequence_matches_jax():
     np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
 
 
+def _recording(detector):
+    """Wrap a loop detector's detect to record (view, candidates) per call."""
+    calls, detect = [], detector.detect
+
+    def run(gray, farthest):
+        out = detect(gray, farthest)
+        calls.append((len(detector.bow_feats) - 1, out))
+        return out
+
+    detector.detect = run
+    return calls
+
+
+def test_loop_closure_matches_jax():
+    """Both packages' OnlineSLAM with a loop detector over an orbit of 12
+    frames that returns to its start, the same weights and a vocabulary
+    trained from seeded descriptors (each package trains its own on the
+    same input; they are equal, test_bow_builds_at_first_use_and_matches_jax):
+    the same loop candidates (views exact, similarities within 1e-6), the
+    same loop edges and view graph, and trajectories within 1e-3 after the
+    final PGO. The ORB images are rendered at 192x192 (ORB finds almost no
+    keypoints at the model's 64x64)."""
+    cv2 = pytest.importorskip("cv2")  # noqa: F841 (ORB)
+    import jax.numpy as jnp
+    from jax.experimental.pallas import tpu as pltpu
+
+    from vista_slam_tpu.cli.run import run_sequence as jax_run_sequence
+    from vista_slam_tpu.models.convert import convert_state_dict
+    from vista_slam_tpu.models.sta import STAConfig as JSTAConfig
+    from vista_slam_tpu.native import bow as jbow
+    from vista_slam_tpu.slam.frontend import FrontendEngine as JFrontend
+    from vista_slam_tpu.slam.loop_detector import LoopDetector as JLoopDetector
+    from vista_slam_tpu.slam.online_slam import OnlineSLAM as JSLAM
+    from vista_slam_tpu_torch.cli.common import build_slam
+    from vista_slam_tpu_torch.cli.run import run_sequence
+    from vista_slam_tpu_torch.native import bow
+    from vista_slam_tpu_torch.slam.loop_detector import LoopDetector
+    from vista_slam_tpu_torch.utils.config import make_config
+
+    n, loop = 12, dict(loop_dist_min=3, loop_nms=2, loop_cand_thresh_neighbor=2)
+    seq = frames(n)
+    for f, g in zip(seq, frames(n, hw=(192, 192))):
+        f["gray"] = g["gray"]
+    rng = np.random.default_rng(0)
+    desc = rng.integers(0, 256, (600, 32), dtype=np.uint8)
+    ids = rng.integers(0, 8, 600)
+
+    cfg = make_config(dict(SLAM, max_view_num=n, model=MODEL, **loop))
+    slam = build_slam(cfg)
+    slam.lc_detector = LoopDetector(bow.train_vocabulary(desc, k=4, levels=3,
+                                                         image_ids=ids), **loop)
+    calls = _recording(slam.lc_detector)
+    run_sequence(slam, seq, cfg)
+
+    sd = {k: v.numpy() for k, v in slam.frontend.model.state_dict().items()}
+    jcfg = JSTAConfig(compute_dtype=jnp.float32,
+                      **dict(MODEL, img_size=tuple(MODEL["img_size"])))
+    jdet = JLoopDetector(jbow.train_vocabulary(desc, k=4, levels=3, image_ids=ids), **loop)
+    jcalls = _recording(jdet)
+    with pltpu.force_tpu_interpret_mode():
+        jslam = JSLAM(JFrontend(jcfg, convert_state_dict(sd)), loop_detector=jdet,
+                      max_view_num=n, neighbor_edge_num=2, loop_edge_num=2,
+                      rel_pose_thres=-1.0)
+        jslam.frontend.fixed_bucket = 4  # one compiled decode (padding is inert)
+        jax_run_sequence(jslam, seq, cfg)
+
+    assert slam.view_num == jslam.view_num == n - 1
+    assert len(calls) == len(jcalls) == n - 1
+    for (v, got), (w, want) in zip(calls, jcalls):
+        assert v == w and [j for j, _ in got] == [j for j, _ in want], v
+        np.testing.assert_allclose([s for _, s in got], [s for _, s in want], atol=1e-6)
+    graph = slam.get_view_graph()
+    assert graph == jslam.get_view_graph()
+    loops = {(v, w) for v, ws in graph.items() for w in ws if abs(v - w) > 2}
+    assert loops, "no loop edge: the case would not test loop closure"
+    got, want = trajectory(slam), trajectory(jslam)
+    assert np.isfinite(got).all() and np.isfinite(want).all()
+    np.testing.assert_allclose(got, want, atol=1e-3, rtol=0)
+
+
 def test_pointmap_store_matches_jax():
     from vista_slam_tpu.slam.pointmap_store import DevicePointmapStore as JStore
     from vista_slam_tpu_torch.slam.pointmap_store import DevicePointmapStore

@@ -383,9 +383,11 @@ def test_train_step_runs_and_moves_params_on_cpu():
     moved = [k for k, v in model.named_parameters() if not torch.equal(before[k], v)]
     assert len(moved) > 100
     assert sum(isinstance(m, FusedBf16Leaf) for m in opt.moments) > 10
-    for knob in (dict(accum_iter=2), dict(freeze=lambda path: False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            step.make_optimizer(**knob)
+    never = lambda path: False  # noqa: E731
+    for knob in (dict(accum_iter=2), dict(freeze=never)):
+        opt = step.make_optimizer(**knob)  # the unfused modes take both
+        assert getattr(opt, "every_k", 1) == knob.get("accum_iter", 1)
+        assert opt.freeze is knob.get("freeze")
         with pytest.raises(ValueError, match="does not compose"):
             step.make_optimizer(state_dtype="int8_fused", **knob)
     for mode in ("int8_fused", "bf16_fused", "bf16", "int8"):

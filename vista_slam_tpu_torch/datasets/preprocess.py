@@ -15,9 +15,11 @@ rgb float32 in [-1, 1], gray uint8, depth float32 (meters).
 from __future__ import annotations
 
 import numpy as np
-import PIL.Image
 
-LANCZOS = getattr(PIL.Image, "Resampling", PIL.Image).LANCZOS
+try:  # image decoding and resampling only: the module imports without them
+    import PIL.Image
+except ImportError:  # pragma: no cover
+    PIL = None
 
 try:
     import cv2
@@ -37,7 +39,7 @@ def colmap_to_opencv_intrinsics(K):
     return K
 
 
-def _crop(image: PIL.Image.Image, depth, K, bbox):
+def _crop(image, depth, K, bbox):
     l, t, r, b = bbox
     image = image.crop((l, t, r, b))
     if depth is not None:
@@ -49,11 +51,11 @@ def _crop(image: PIL.Image.Image, depth, K, bbox):
     return image, depth, K
 
 
-def _rescale(image: PIL.Image.Image, depth, K, out_res):
+def _rescale(image, depth, K, out_res):
     in_res = np.array(image.size)
     scale = max(np.array(out_res) / in_res) + 1e-8
     new_res = np.floor(in_res * scale).astype(int)
-    image = image.resize(new_res, resample=LANCZOS)
+    image = image.resize(new_res, resample=getattr(PIL.Image, "Resampling", PIL.Image).LANCZOS)
     if depth is not None:
         depth = cv2.resize(depth, tuple(new_res), interpolation=cv2.INTER_NEAREST)
     if K is not None:
@@ -77,6 +79,9 @@ def crop_resize(rgb: np.ndarray, depth: np.ndarray | None, K: np.ndarray | None,
                 resolution=(224, 224), w_edge=0, h_edge=0):
     """rgb HWC uint8, optional depth HW float, optional K [3,3].
     Returns (rgb_uint8 HWC at resolution, depth, K')."""
+    if PIL is None:
+        raise ModuleNotFoundError("crop_resize resamples with Pillow (PIL), which is "
+                                  "not installed")
     image = PIL.Image.fromarray(rgb)
     W, H = image.size
     if K is None:

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from .combinators import ComposableDataset
+
 
 def _texture(points: np.ndarray, scale: float = 1.5) -> np.ndarray:
     """Procedural RGB texture over 3D wall points, in [0, 1]."""
@@ -78,9 +80,9 @@ def orbit_trajectory(n, radius=2.0, height=0.0, target=(0, 0, 0)):
     return np.stack(poses)
 
 
-class SyntheticSceneDataset:
-    """In-memory view-graph dataset over a BoxScene (ComposableDataset-free:
-    used directly by the trainer's loader through duck typing)."""
+class SyntheticSceneDataset(ComposableDataset):
+    """In-memory view-graph dataset over a BoxScene; composes with the
+    dataset algebra (``+``, ``*``, ``@``) of datasets/combinators.py."""
 
     def __init__(self, n_frames=64, hw=(64, 64), focal=48.0, neighbor_num=1,
                  loop_num=1, seed=0, radius=2.0):
@@ -95,13 +97,6 @@ class SyntheticSceneDataset:
         self.n_frames = n_frames
         self._resolutions = [hw[::-1]]
         self._cache: dict[int, dict] = {}
-
-    def set_epoch(self, epoch):
-        pass
-
-    @property
-    def num_resolutions(self):
-        return 1
 
     def __len__(self):
         return self.n_frames

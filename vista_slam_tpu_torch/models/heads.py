@@ -115,14 +115,19 @@ def postprocess_pts3d(raw: torch.Tensor, conf_offset: float = 1.0):
 
 def svd_orthogonalize(m: torch.Tensor) -> torch.Tensor:
     """9D -> SO(3): row normalisation, SVD projection, reflection fix
-    (reference: heads/pose_head.py:38-57)."""
+    (reference: heads/pose_head.py:38-57). A matrix with a non-finite entry
+    gives NaN, as the JAX package's SVD does (LAPACK refuses such input, so
+    it is projected in place of a finite matrix and its result replaced)."""
     m = m.reshape(m.shape[:-1] + (3, 3)) if m.shape[-1] == 9 else m
     m = m / torch.clamp_min(torch.linalg.vector_norm(m, dim=-1, keepdim=True), 1e-8)
-    u, _, vh = torch.linalg.svd(m.transpose(-1, -2).float(), full_matrices=False)
+    a = m.transpose(-1, -2).float()
+    finite = torch.isfinite(a).all(dim=-1).all(dim=-1)[..., None, None]
+    eye = torch.eye(3, dtype=a.dtype, device=a.device)
+    u, _, vh = torch.linalg.svd(torch.where(finite, a, eye), full_matrices=False)
     v = vh.transpose(-1, -2)
     det = torch.linalg.det(v @ u.transpose(-1, -2))
     v = torch.cat([v[..., :, :-1], v[..., :, -1:] * det[..., None, None]], dim=-1)
-    return v @ u.transpose(-1, -2)
+    return torch.where(finite, v @ u.transpose(-1, -2), torch.nan)
 
 
 def svd_orthogonalize_stable(m: torch.Tensor, n_iter: int = 100) -> torch.Tensor:

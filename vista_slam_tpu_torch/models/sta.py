@@ -14,6 +14,10 @@ weights are held in ``param_dtype`` (by default the compute dtype, for
 inference; fp32 for training, cast to the compute dtype in every matmul as
 the JAX package's Dense layers cast its fp32 params). Parameter names are
 the reference's torch state-dict keys.
+With ``remat``, every encoder and decoder block runs under
+``torch.utils.checkpoint`` (non-reentrant), as the JAX package wraps them
+in ``nn.remat``: the block's activations are recomputed in the backward
+instead of kept, so its attention forward runs twice a training step.
 Images are NHWC in [-1, 1].
 """
 
@@ -24,6 +28,7 @@ import dataclasses
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha
 from ..ops.rope2d import apply_rope2d, rope2d_tables
@@ -52,6 +57,8 @@ class STAConfig:
     gelu_approx: bool = False
     # dtype the trunk weights are held in; None = compute_dtype
     param_dtype: torch.dtype | None = None
+    # recompute each block's activations in the backward (train memory)
+    remat: bool = False
 
     @property
     def grid(self) -> tuple[int, int]:
@@ -275,8 +282,13 @@ class STA(nn.Module):
         x = x.reshape(b, gh * gw, d)
         rope = self._rope(c.enc_dim // c.enc_heads, 0, (gh, gw), x.device)
         for blk in self.enc_blocks:
-            x = blk(x, rope)
+            x = self._block(blk, x, rope)
         return x.float()
+
+    def _block(self, blk: nn.Module, *args):
+        if self.cfg.remat:
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
 
     def decode_pair(self, f1: torch.Tensor, f2: torch.Tensor, grid=None):
         """f1, f2 [B, N, enc_dim] -> (h_mid1, h_mid2, final), each
@@ -293,7 +305,7 @@ class STA(nn.Module):
         mids = {}
         for i, blk in enumerate(self.dec_block):
             y = torch.cat([x[B:], x[:B]], dim=0)  # swap streams
-            x = blk(x, y, rope)
+            x = self._block(blk, x, y, rope)
             if i + 1 in hook_after:
                 mids[i + 1] = x.float()
         return mids[hook_after[0]], mids[hook_after[1]], self.dec_norm(x)

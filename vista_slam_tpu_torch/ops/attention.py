@@ -31,6 +31,13 @@ from ..kernels import attn_train, flash_attn
 
 CALLS = {"flash": 0, "plain": 0, "fused": 0}
 MAX_FUSED_TOKENS = attn_train.MAX_FUSED_TOKENS
+# ``use_flash=None`` takes K1 from this many query tokens where the fused
+# training path is off: on the H100, K1 ran 5.2-24x faster than mha_plain at
+# every token count measured, 196 to 769, at batch 1 and 16 (chip_smoke.py's
+# dispatch table, PERF.md). With ``fused_train`` the JAX package's 512 stays,
+# so the memory-knob path keeps its fused kernels below it.
+FLASH_MIN_TOKENS = 196
+FUSED_FLASH_MIN_TOKENS = 512
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -95,13 +102,15 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
         use_flash: bool | None = None, fused_train: bool = False) -> torch.Tensor:
-    """The JAX package's dispatch order: ``use_flash`` (None = the JAX
-    package's rule, flash from 512 query tokens on; where the card's
-    crossover lies is not measured yet) wins; then, with ``fused_train``,
-    the fused kernels for N_q == N_kv <= MAX_FUSED_TOKENS; else plain."""
+    """The JAX package's dispatch order: ``use_flash`` wins; then, with
+    ``fused_train``, the fused kernels for N_q == N_kv <= MAX_FUSED_TOKENS;
+    else plain. ``use_flash=None`` decides by the number of query tokens:
+    flash from FLASH_MIN_TOKENS (the H100's crossover, below the JAX
+    package's 512), or from FUSED_FLASH_MIN_TOKENS (the JAX package's rule)
+    with ``fused_train``."""
     n = q.shape[-2]
     if use_flash is None:
-        use_flash = n >= 512
+        use_flash = n >= (FUSED_FLASH_MIN_TOKENS if fused_train else FLASH_MIN_TOKENS)
     if use_flash:
         CALLS["flash"] += 1
         return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(), scale)

@@ -26,6 +26,9 @@ steps, its ``scale_by_adam_q``/``adamw_q`` (``"bf16"``: bf16 moments;
 int8 mu codes and sqrt-domain uint8 nu codes, one fp32 scale per block),
 which the JAX package runs as XLA code, not as a kernel.
 
+``MultiSteps`` wraps a ``ChainAdamW`` as ``optax.MultiSteps`` wraps a
+transform: gradient accumulation over ``every_k`` mini-steps.
+
 All read the gradients from ``.grad`` and skip parameters without one.
 ``init`` takes the weight-decay mask per parameter (``decay``) and, for
 the modes whose blocks follow the layout, the JAX-layout permutation of
@@ -33,7 +36,10 @@ each parameter (``layouts``, identity by default); the training step takes
 both from models/convert.py (the JAX package decays leaves with ``ndim >
 1`` in its own layout). The step count lives on the host; the step scalars
 go to the device as one fp32 tensor, the clip coefficient computed on the
-device, so a step never waits for the gradient norm.
+device, so a step never waits for the gradient norm. ``state_dict`` /
+``load_state_dict`` save and restore the count and every moment tensor;
+loading copies into the tensors bound at ``init`` (K4's table holds their
+storage), and a state saved with another ``state_dtype`` raises.
 """
 
 from __future__ import annotations
@@ -80,8 +86,29 @@ def _global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(norms)).float()
 
 
+def _flat(leaf) -> list[torch.Tensor]:
+    """A moment leaf's tensors in order (NamedTuples of tensors, nested)."""
+    if isinstance(leaf, torch.Tensor):
+        return [leaf]
+    return [t for part in leaf for t in _flat(part)]
+
+
+def _copy_into(dst: Sequence[torch.Tensor], src: Sequence[torch.Tensor], what: str) -> None:
+    """dst[i].copy_(src[i]) after checking that every shape and dtype agree."""
+    if len(dst) != len(src):
+        raise ValueError(f"{what}: {len(src)} saved tensors for {len(dst)}")
+    for k, (d, t) in enumerate(zip(dst, src)):
+        if d.shape != t.shape or d.dtype != t.dtype:
+            raise ValueError(f"{what}[{k}]: saved {tuple(t.shape)} {t.dtype}, "
+                             f"have {tuple(d.shape)} {d.dtype}")
+    with torch.no_grad():
+        for d, t in zip(dst, src):
+            d.copy_(t)
+
+
 class _AdamWBase:
     state_dtype = "fp32"
+    freeze = None  # make_optimizer's freeze predicate, applied by the train step
 
     def __init__(self, schedule: Callable[[int], np.float32], b1: float, b2: float,
                  eps: float, weight_decay: float, clip: float):
@@ -104,10 +131,10 @@ class _AdamWBase:
                              f"{len(layouts)} layouts")
         self.params, self.decay = list(params), [bool(d) for d in decay]
         self.layouts = [tuple(perm) for perm in layouts]
-        self.moments = [self._init_leaf(p) for p in self.params]
+        self.moments = [self._init_leaf(p, perm) for p, perm in zip(self.params, self.layouts)]
         self.count = 0
 
-    def _init_leaf(self, p: torch.Tensor):
+    def _init_leaf(self, p: torch.Tensor, perm: tuple[int, ...]):
         return Fp32Leaf(torch.zeros_like(p, dtype=torch.float32),
                         torch.zeros_like(p, dtype=torch.float32))
 
@@ -129,6 +156,29 @@ class _AdamWBase:
     def _live(self) -> list[int]:
         """Indices of the parameters that have a gradient."""
         return [i for i, p in enumerate(self.params) if p.grad is not None]
+
+    def state_dict(self) -> dict:
+        """The step count and every moment tensor (references, not copies)."""
+        return {"state_dtype": self.state_dtype, "count": self.count,
+                "moments": [_flat(m) for m in self.moments]}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a ``state_dict`` in place: each moment tensor is copied into
+        the one bound at ``init``, whose storage stays where it is."""
+        if state.get("state_dtype") != self.state_dtype:
+            raise ValueError(f"the saved optimizer state has moments in "
+                             f"{state.get('state_dtype')!r}, this optimizer in "
+                             f"{self.state_dtype!r}")
+        extra = set(state) - {"state_dtype", "count", "moments"}
+        if extra:
+            raise ValueError(f"the saved optimizer state has {sorted(extra)}, which this "
+                             "optimizer does not keep (another accum_iter?)")
+        if len(state["moments"]) != len(self.moments):
+            raise ValueError(f"{len(state['moments'])} saved moment leaves for "
+                             f"{len(self.moments)} parameters")
+        for i, (m, saved) in enumerate(zip(self.moments, state["moments"])):
+            _copy_into(_flat(m), saved, f"moment leaf {i}")
+        self.count = int(state["count"])
 
 
 class FusedAdamW(_AdamWBase):
@@ -159,9 +209,9 @@ class FusedAdamW(_AdamWBase):
               self.weight_decay if self.decay[i] else 0.0) for i in self.int8_index],
             b1=self.b1, b2=self.b2, eps=self.eps) if self.int8_index else None
 
-    def _init_leaf(self, p):
+    def _init_leaf(self, p, perm):
         if not fused_eligible(p):
-            return super()._init_leaf(p)
+            return super()._init_leaf(p, perm)
         C, dev = p.numel() // QBLOCK, p.device
         if self.state_dtype == "int8_fused":
             # zero codes dequantize to exactly 0 whatever the scales say
@@ -252,8 +302,9 @@ class ChainAdamW(_AdamWBase):
         super().__init__(schedule, b1, b2, eps, weight_decay, clip)
         self.state_dtype = state_dtype
 
-    def _init_leaf(self, p):
-        z = torch.zeros_like(p, dtype=torch.float32)
+    def _init_leaf(self, p, perm):
+        # in the JAX-layout shape, as step leaves them
+        z = torch.zeros(p.permute(perm).shape, dtype=torch.float32, device=p.device)
         return Fp32Leaf(self._compress(z, True), self._compress(z.clone(), False))
 
     def _compress(self, x: torch.Tensor, signed: bool):
@@ -273,11 +324,14 @@ class ChainAdamW(_AdamWBase):
         return (x if signed else x * x).reshape(-1)[:n].reshape(shape)
 
     @torch.no_grad()
-    def step(self) -> None:
-        live = self._live()
+    def step(self, grads: dict[int, torch.Tensor] | None = None) -> None:
+        """One update from each parameter's ``.grad``, or from ``grads``
+        (parameter index -> gradient) where given."""
+        if grads is None:
+            grads = {i: self.params[i].grad.float() for i in self._live()}
+        live = list(grads)
         if not live:
             return
-        grads = {i: self.params[i].grad.float() for i in live}
         dev = self.params[live[0]].device
         gnorm = _global_norm(list(grads.values()))
         lr, c1, c2 = self._host_to(dev).unbind()
@@ -295,3 +349,58 @@ class ChainAdamW(_AdamWBase):
             pv.copy_(pv + u * -lr)
             self.moments[i] = Fp32Leaf(self._compress(mu, True), self._compress(nu, False))
         self.count += 1
+
+
+class MultiSteps:
+    """optax.MultiSteps(inner, every_k_schedule=every_k) with its default
+    ``use_grad_mean=True``: each mini-step folds the gradients into their
+    running mean ``acc + (g - acc) / (n + 1)`` in fp32 (n the mini-steps
+    since the last update); the ``every_k``-th hands the mean to
+    ``inner.step`` and resets it. The mini-steps before it leave the
+    parameters and the moments alone, so the inner count, and with it the
+    schedule's lr, advances once per ``every_k`` mini-steps. ``inner`` is a
+    ``ChainAdamW``; its other attributes read through."""
+
+    def __init__(self, inner: ChainAdamW, every_k: int):
+        if every_k < 1:
+            raise ValueError(f"every_k must be >= 1, got {every_k}")
+        self.inner, self.every_k = inner, every_k
+        self.mini_step = 0
+        self.acc: list[torch.Tensor] = []
+        self.freeze = None
+
+    def __getattr__(self, name):
+        return getattr(self.__dict__["inner"], name)
+
+    def init(self, params, decay, layouts) -> None:
+        self.inner.init(params, decay, layouts)
+        self.acc = [torch.zeros_like(p, dtype=torch.float32) for p in self.inner.params]
+        self.mini_step = 0
+
+    @torch.no_grad()
+    def step(self) -> None:
+        live, n = self.inner._live(), self.mini_step
+        for i in live:
+            acc = self.acc[i]
+            acc.add_((self.inner.params[i].grad.float() - acc) / (n + 1))
+        if n + 1 < self.every_k:
+            self.mini_step = n + 1
+            return
+        self.inner.step({i: self.acc[i] for i in live})
+        for acc in self.acc:
+            acc.zero_()
+        self.mini_step = 0
+
+    def state_dict(self) -> dict:
+        return {**self.inner.state_dict(), "mini_step": self.mini_step,
+                "acc_grads": list(self.acc)}
+
+    def load_state_dict(self, state: dict) -> None:
+        if "acc_grads" not in state:
+            raise ValueError("the saved optimizer state has no accumulated gradients "
+                             f"(saved without accum_iter; this one accumulates "
+                             f"{self.every_k} mini-steps)")
+        inner = {k: v for k, v in state.items() if k not in ("mini_step", "acc_grads")}
+        self.inner.load_state_dict(inner)
+        _copy_into(self.acc, state["acc_grads"], "accumulated gradients")
+        self.mini_step = int(state["mini_step"])

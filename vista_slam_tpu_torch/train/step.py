@@ -8,8 +8,9 @@ plain eager function on tensors. The optimizer follows the JAX package's
 schedule, weight decay on parameters whose JAX-layout rank is above 1, and
 moments in fp32 (``state_dtype="fp32"``), in bf16 through kernel K5
 (``"bf16_fused"``), in int8 through kernel K4 (``"int8_fused"``), or
-carried compressed between plain-PyTorch steps (``"bf16"``, ``"int8"``).
-Gradient accumulation and freezing are not ported yet (ROADMAP.md, Queue 1).
+carried compressed between plain-PyTorch steps (``"bf16"``, ``"int8"``),
+with gradient accumulation (``accum_iter``, optax.MultiSteps) and frozen
+parameters (``freeze``) on the unfused modes.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 from ..models.convert import jax_layouts, jax_param_ndims
 from ..models.sta import STA
 from .losses import sta_criterion
-from .quantized_opt import ChainAdamW, FusedAdamW
+from .quantized_opt import ChainAdamW, FusedAdamW, MultiSteps
 
 
 def warmup_cosine_decay_schedule(init_value: float, peak_value: float,
@@ -56,23 +57,55 @@ def make_optimizer(lr: float = 1e-4, warmup_steps: int = 1000,
     """AdamW(0.9, 0.95) + per-iteration cosine schedule with warm-up +
     global-norm clip (reference: train.py:403-404, croco_misc.py:454-469,
     clip at train.py:293). ``state_dtype``: fp32, bf16_fused, int8_fused,
-    bf16 or int8 (train/quantized_opt.py). Bind it to parameters with
-    ``init``."""
-    if accum_iter > 1 or freeze is not None:
-        if state_dtype.endswith("_fused"):
-            raise ValueError("the fused optimizer kernel does not compose "
-                             "with accum_iter/freeze; use state_dtype="
-                             "'int8'/'bf16' (XLA carriers) for those")
-        raise NotImplementedError("accum_iter / freeze are not ported yet: "
-                                  "see ROADMAP.md, Queue 1")
+    bf16 or int8 (train/quantized_opt.py). ``accum_iter`` > 1 averages the
+    gradients of that many mini-steps before each update (reference:
+    train.py:142-143,292-297); ``freeze`` is a predicate(name_path) -> bool
+    over each parameter's name split at the dots, marking the parameters
+    that ``bind_optimizer`` freezes (reference set_freeze,
+    sta_model.py:148-161). Bind it to parameters with ``bind_optimizer``
+    (or ``init``)."""
+    if state_dtype.endswith("_fused") and (accum_iter > 1 or freeze is not None):
+        raise ValueError("the fused optimizer kernel does not compose "
+                         "with accum_iter/freeze; use state_dtype="
+                         "'int8'/'bf16' (XLA carriers) for those")
     warmup_steps = min(warmup_steps, max(total_steps // 10, 1))
     schedule = warmup_cosine_decay_schedule(0.0, lr, warmup_steps, total_steps, min_lr)
     hp = (schedule, 0.9, 0.95, 1e-8, weight_decay, clip)
     if state_dtype in ("bf16_fused", "int8_fused"):
         return FusedAdamW(*hp, state_dtype=state_dtype)
-    if state_dtype in ("fp32", "bf16", "int8"):
-        return ChainAdamW(*hp, state_dtype=state_dtype)
-    raise ValueError(f"unknown state_dtype {state_dtype!r}")
+    if state_dtype not in ("fp32", "bf16", "int8"):
+        raise ValueError(f"unknown state_dtype {state_dtype!r}")
+    opt = ChainAdamW(*hp, state_dtype=state_dtype)
+    if accum_iter > 1:
+        opt = MultiSteps(opt, accum_iter)
+    opt.freeze = freeze
+    return opt
+
+
+def freeze_encoder(path: tuple[str, ...]) -> bool:
+    """Freeze predicate matching the reference's freeze='encoder' (patch
+    embed + encoder blocks, sta_model.py:150-152). The JAX package's names
+    ``enc_block{i}``/``patch_embed`` are the port's ``enc_blocks.{i}``/
+    ``patch_embed.proj`` (models/convert.py), so the one test of the JAX
+    package's predicate picks the same parameters from either."""
+    return any(n.startswith(("enc_block", "patch_embed")) for n in path)
+
+
+def bind_optimizer(model: torch.nn.Module, optimizer) -> list[torch.Tensor]:
+    """Freeze the parameters that ``optimizer.freeze`` marks
+    (``requires_grad_(False)``: no gradient, so no update and no share of
+    the clip's global norm, as under the JAX package's multi_transform) and
+    bind ``optimizer`` to every parameter, with the weight-decay flag and
+    JAX-layout permutation of each (models/convert.py). Returns the
+    parameters in ``named_parameters`` order."""
+    names, params = zip(*model.named_parameters())
+    if optimizer.freeze is not None:
+        for n, p in zip(names, params):
+            if optimizer.freeze(tuple(n.split("."))):
+                p.requires_grad_(False)
+    ndims, layouts = jax_param_ndims(model), jax_layouts(model)
+    optimizer.init(params, [ndims[n] > 1 for n in names], [layouts[n] for n in names])
+    return list(params)
 
 
 def split_train_outputs(out: dict, n_support: int, batch: int):
@@ -110,16 +143,15 @@ def batch_to(batch: dict, device) -> dict:
 
 def make_train_step(model: STA, optimizer, n_support: int, device="cuda"):
     """Move ``model`` to ``device``, bind ``optimizer`` to its parameters
-    (weight decay where the JAX-layout rank is above 1, blocks of the
-    int8 modes in the JAX layout) and return
+    (``bind_optimizer``: frozen parameters, weight decay where the
+    JAX-layout rank is above 1, blocks of the int8 modes in the JAX
+    layout) and return
     ``step_fn(batch, conf_alpha=0.4) -> (loss, details)``: one eager
     forward, ``backward()`` and optimizer step on a collated numpy batch.
     The loss comes back as a device tensor (no host sync)."""
     device = torch.device(device)
     model.to(device).train()
-    names, params = zip(*model.named_parameters())
-    ndims, layouts = jax_param_ndims(model), jax_layouts(model)
-    optimizer.init(params, [ndims[n] > 1 for n in names], [layouts[n] for n in names])
+    params = bind_optimizer(model, optimizer)
     loss_fn = make_loss_fn(model, n_support)
 
     def step_fn(batch: dict, conf_alpha: float = 0.4):
