@@ -111,6 +111,24 @@ Phases, each printed on its own lines; any failure exits non-zero:
                twice a step, lower peak memory); each run's K3a/K3b/K4
                launches equal to those derived, with no K1/K2/K5 and no
                plain or flash attention.
+ 14. long sequence — configs/default.yaml's model at full width (224x224,
+               attention by sequence length: K1 everywhere) with random
+               weights, stride-1 keyframing over 401 frames of the box-scene
+               orbit (400 keyframes, max_view_num): (a) run_sequence with
+               the final PGO by PCG (LONG_PGO), K1 launches equal to those
+               derived, no plain or fused attention, the PGO's seconds, LM
+               steps and CG iterations; (b) the state saved every 100
+               keyframes (bytes, seconds), the save at keyframe 200 loaded
+               into a fresh OnlineSLAM and run to the end: graph, view names
+               and store before the final PGO bit-identical to (a)'s, the
+               trajectory after it bit-identical too; (c) evaluate_scene
+               over every 16th frame with GT and reconstruction: finite ATE
+               and chamfer, evaluation_results.json written; (d) the batched
+               7x7 SPD inverse three ways at [4800,7,7], and dense against
+               PCG per 20-step solve on chain+loop graphs in the production
+               buffers (4800 nodes / 5200 edges) at 512, 1024, 2048 and 4790
+               optimised nodes (median of 3, warm), final losses within
+               0.2%, the crossover beside PGOConfig.dense_max.
 Each launch count is set to 0 just before a path runs and read just after.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the port next to
@@ -138,6 +156,26 @@ HIGHRES = {
     "model": {"img_size": [384, 512], "use_flash": True},
 }
 N_FRAMES = 11  # stride-1 keyframing starts at frame 1: 10 keyframes
+
+# configs/default.yaml's SLAM settings (it has no model section: 224x224,
+# use_flash None, so every attention takes K1 from 196 tokens), inlined so
+# that the run needs no YAML parser; tests/test_torch_slam.py holds the two
+# equal
+DEFAULT = {
+    "max_view_num": 400, "neighbor_edge_num": 3, "loop_edge_num": 3,
+    "loop_dist_min": 40, "loop_nms": 40, "loop_cand_thresh_neighbor": 5,
+    "point_conf_thres": 4.2, "rel_pose_thres": 0.75, "pgo_every": 500,
+    "state_every": 0, "compute_dtype": "bfloat16", "combine_loop_batch": False,
+    "random_seed": 43,
+}
+LONG_KEYFRAMES = 400     # phase 14a: max_view_num keyframes, stride 1
+# 14a's PGO solver: this random-weight model keeps about 2 optimised nodes a
+# keyframe (its pose confidences reject most non-consecutive edges), about
+# 800 at 400 keyframes, below PGOConfig.dense_max (4800, set by 14d): the
+# run names the solver, as configs/live.yaml shows
+LONG_PGO = {"solver": "pcg"}
+LONG_STATE_EVERY = 100   # 14b: saves at keyframes 100, 200, 300, 400
+EVAL_STRIDE = 16         # 14c: evaluate_scene over every 16th frame of the orbit
 
 # configs/train_fast.yaml's hyper-parameters and model section (its dataset
 # specs name data outside the repository) with the two memory knobs,
@@ -1630,6 +1668,445 @@ def run_trainer(card: str) -> dict:
             "remat_peak_gib": peak3, "phase_s": secs}
 
 
+# phase 14 (long sequence): the PGO production buffers (configs/default.yaml's
+# max_view_num 400 x 12 node slots a keyframe; 5200 edges) and the sweep's
+# optimised-node counts (scripts/profile_pgo.py's chain with loop edges)
+PGO_BUFFERS = (4800, 5200)
+PGO_SWEEP = (512, 1024, 2048, 4790)
+PGO_REPS = 3            # timed solves per point, after one warm-up
+PGO_LOSS_RTOL = 2e-3    # dense vs PCG final loss: the oracle contract (BASELINE.md)
+INV_SHAPE = (4800, 7, 7)
+
+
+def pgo_sweep_graph(n_opt: int, seed: int = 0) -> tuple:
+    """scripts/profile_pgo.py's graph on the host: a chain of n_opt + 1
+    nodes (0.3 m forward, 0.05 rad yaw a step, 0.05 m of translation noise
+    on each odometry edge), a loop edge back 50 nodes every 97, node 0 fixed,
+    padded to PGO_BUFFERS; nodes start at the integrated odometry. Returns
+    the six optimize_pose_graph arrays as CUDA tensors."""
+    import numpy as np
+    import torch
+
+    from vista_slam_tpu_torch.slam import host_math as hm
+
+    rng = np.random.default_rng(seed)
+    n, e = PGO_BUFFERS
+    real = n_opt + 1
+    phi = 0.05
+    rot = np.asarray([[np.cos(phi), -np.sin(phi), 0], [np.sin(phi), np.cos(phi), 0],
+                      [0, 0, 1]])
+    step = np.concatenate([[0.3, 0.0, 0.0], hm.matrix_to_quat(rot), [1.0]]).astype(np.float32)
+    gt = [hm.identity()]
+    for _ in range(1, real):
+        gt.append(hm.mul(gt[-1], step))
+    edges, meas = [], []
+    for k in range(1, real):
+        z = hm.mul(hm.inv(gt[k - 1]), gt[k])
+        z[:3] += 0.05 * rng.standard_normal(3).astype(np.float32)
+        meas.append(z)
+        edges.append((k, k - 1))
+    for k in range(50, real, 97):
+        meas.append(hm.mul(hm.inv(gt[k - 50]), gt[k]))
+        edges.append((k, k - 50))
+    nodes = np.tile(hm.identity(), (n, 1))
+    for k in range(1, real):
+        nodes[k] = hm.mul(nodes[k - 1], meas[k - 1])
+    E = len(edges)
+    edges_buf = np.zeros((e, 2), np.int64)
+    edges_buf[:E] = edges
+    meas_buf = np.tile(hm.identity(), (e, 1))
+    meas_buf[:E] = np.stack(meas)
+    valid = np.zeros(e, bool)
+    valid[:E] = True
+    opt = np.zeros(n, bool)
+    opt[1:real] = True
+    return tuple(torch.from_numpy(np.asarray(a)).cuda() for a in (
+        nodes.astype(np.float32), edges_buf, meas_buf.astype(np.float32),
+        np.ones((e, 7), np.float32), valid, opt))
+
+
+def time_spd_inverses(card: str) -> dict:
+    """The batched 7x7 SPD inverse of the block-tridiagonal preconditioner,
+    three ways at INV_SHAPE, one call per event pair (host work included:
+    the PGO runs eagerly, and cholesky_inverse's MAGMA path cannot be
+    captured in a CUDA graph): the port's Gauss-Jordan (ops/linalg.py),
+    torch.linalg.inv_ex, and cholesky_ex + cholesky_inverse; each one's
+    error against a float64 inverse."""
+    import torch
+
+    from vista_slam_tpu_torch.ops.block_tridiag import spd_inv
+    from vista_slam_tpu_torch.ops.linalg import gauss_jordan_inv
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randn(INV_SHAPE, generator=gen, device="cuda")
+    spd = a @ a.transpose(1, 2) + 0.5 * torch.eye(7, device="cuda")
+    want = torch.linalg.inv(spd.double())
+
+    def cholesky(b):
+        L, _ = torch.linalg.cholesky_ex(b)
+        return torch.cholesky_inverse(L)
+
+    ways = {"gauss_jordan_inv": gauss_jordan_inv,
+            "linalg.inv_ex": lambda b: torch.linalg.inv_ex(b)[0],
+            "cholesky_ex + cholesky_inverse": cholesky}
+    out = {}
+    for name, fn in ways.items():
+        err = ((fn(spd).double() - want).abs().max() / want.abs().max()).item()
+        out[name] = (cuda_ms(lambda: fn(spd)), err)
+    same = torch.equal(spd_inv(spd), torch.linalg.inv_ex(spd)[0])
+    log(f"SPD inverse at {list(INV_SHAPE)} fp32, ms per call (event pair) and normwise "
+        "error against float64: " + ", ".join(
+            f"{k} {ms:.4f} ms ({err:.1e})" for k, (ms, err) in out.items())
+        + f"; block_tridiag.spd_inv is the inv_ex route: {same} [{card}]")
+    if not same or max(err for _, err in out.values()) > 1e-4:
+        raise AssertionError("block_tridiag.spd_inv is not the inv_ex route, or an "
+                             "inverse is off")
+    return out
+
+
+def sweep_pgo(card: str) -> dict:
+    """Phase 14d: dense against PCG (tridiag) per 20-step solve of
+    pgo_sweep_graph at each PGO_SWEEP size, warm (a 2-step solve of the
+    same graph first), the median of PGO_REPS by the host clock with the
+    card synchronised (the solve's host work included: the LM loop runs on
+    the host), with LM steps, CG iterations and final losses; the losses
+    must agree within PGO_LOSS_RTOL, and each solver's timed solves must
+    give the same nodes bit for bit. Prints the crossover beside
+    PGOConfig.dense_max."""
+    import torch
+
+    from vista_slam_tpu_torch.slam.pgo import PGOConfig, optimize_pose_graph
+
+    rows = {}
+    t_sweep = time.perf_counter()
+    for n_opt in PGO_SWEEP:
+        arrays = pgo_sweep_graph(n_opt)
+        row = {}
+        for solver in ("dense", "pcg"):
+            cfg = PGOConfig(solver=solver)
+            optimize_pose_graph(*arrays, cfg._replace(max_steps=2))  # warm-up
+            times, xs = [], []
+            for _ in range(PGO_REPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                x, info = optimize_pose_graph(*arrays, cfg)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                xs.append(x)
+            if not torch.isfinite(x).all():
+                raise AssertionError(f"PGO sweep {solver} at {n_opt}: non-finite nodes")
+            if not all(torch.equal(xs[0], y) for y in xs[1:]):
+                raise AssertionError(f"PGO sweep {solver} at {n_opt}: solves differ")
+            row[solver] = {"ms": statistics.median(times), "all_ms": times,
+                           "steps": info["steps"], "cg_iters": sum(info["cg_iters"]),
+                           "loss0": info["loss0"], "loss": info["loss"]}
+            torch.cuda.empty_cache()
+        gap = abs(row["pcg"]["loss"] - row["dense"]["loss"]) / row["dense"]["loss"]
+        row["loss_gap"] = gap
+        rows[n_opt] = row
+        log(f"PGO sweep at {n_opt} optimised nodes ({PGO_BUFFERS[0]} / {PGO_BUFFERS[1]} "
+            f"buffers): dense {row['dense']['ms']:.1f} ms per solve "
+            f"({row['dense']['steps']} LM steps), PCG {row['pcg']['ms']:.1f} ms "
+            f"({row['pcg']['steps']} LM steps, {row['pcg']['cg_iters']} CG iterations), "
+            f"median of {PGO_REPS} warm, each solver's {PGO_REPS} solves bit-identical; loss "
+            f"{row['dense']['loss0']:.6g} -> dense "
+            f"{row['dense']['loss']:.6g}, PCG {row['pcg']['loss']:.6g} (gap {gap:.2e}, "
+            f"tol {PGO_LOSS_RTOL:g}) [{card}]")
+        if not gap <= PGO_LOSS_RTOL:
+            raise AssertionError(f"PGO sweep at {n_opt}: dense and PCG losses disagree")
+    dense_wins = [n for n in PGO_SWEEP if rows[n]["dense"]["ms"] <= rows[n]["pcg"]["ms"]]
+    implied = max(dense_wins) if dense_wins else 0
+    log(f"PGO sweep: dense is faster at {dense_wins} optimised nodes, so dense_max >= "
+        f"{implied} by this sweep; PGOConfig.dense_max = {PGOConfig().dense_max} (the "
+        f"buffers' {PGO_BUFFERS[0]} nodes); sweep in {time.perf_counter() - t_sweep:.2f} s "
+        f"[{card}]")
+    return {"rows": rows, "implied_dense_max": implied}
+
+
+def orbit_frames(n: int, hw=(224, 224)) -> list:
+    """n frames of the box scene on a 1.5 m orbit, with the evaluation
+    loaders' keys: rgb in [-1, 1], gray, GT depth, intrinsics and
+    cam-to-world pose; rendered on the host by 8 threads."""
+    import concurrent.futures
+
+    import numpy as np
+
+    from vista_slam_tpu_torch.datasets.synthetic_scene import BoxScene, orbit_trajectory
+
+    h, w = hw
+    K = np.array([[0.75 * w, 0, w / 2], [0, 0.75 * w, h / 2], [0, 0, 1]], np.float32)
+    scene, poses = BoxScene(), orbit_trajectory(n, radius=1.5)
+
+    def frame(t):
+        rgb, depth = scene.render(poses[t], K, hw)
+        return {"rgb": (rgb * 2 - 1).astype(np.float32),
+                "gray": (rgb.mean(-1) * 255).astype(np.uint8), "depth": depth,
+                "intrinsic": K, "camera_pose": poses[t].astype(np.float32),
+                "img_name": f"frame_{t:04d}"}
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return list(pool.map(frame, range(n)))
+
+
+def pre_pgo_snapshot(slam) -> dict:
+    """The graph, view names and pointmap store as they stand (copies)."""
+    g, store = slam.graph, slam.pointmaps
+    nn, ne = g.num_nodes, g.num_edges
+    return {"num_nodes": nn, "num_edges": ne, "node_poses": g.node_poses[:nn].copy(),
+            "node_view": g.node_view[:nn].copy(),
+            "node_connected_view": g.node_connected_view[:nn].copy(),
+            "edges": g.edges[:ne].copy(), "edge_poses": g.edge_poses[:ne].copy(),
+            "edge_confs": g.edge_confs[:ne].copy(),
+            "view_to_nodes": {k: list(v) for k, v in g.view_to_nodes.items()},
+            "view_best_node": dict(g.view_best_node), "view_names": list(slam.view_names),
+            "loop_related_views": set(slam.loop_related_views),
+            "store_depth": store.depth[:nn].clone(), "store_conf": store.conf[:nn].clone(),
+            "store_intri": store.intri[:nn].copy()}
+
+
+def snapshots_equal(a: dict, b: dict) -> dict:
+    """Key by key, bit for bit."""
+    import numpy as np
+    import torch
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return x.shape == y.shape and torch.equal(x, y)
+        if isinstance(x, np.ndarray):
+            return x.shape == y.shape and x.dtype == y.dtype and np.array_equal(x, y)
+        return x == y
+
+    return {k: same(a[k], b[k]) for k in a}
+
+
+def watch_pgo(slam, record: dict) -> None:
+    """Wrap slam.pose_graph_optimize: before each call, the snapshot and the
+    optimised-node count; after it, its seconds (card synchronised) and
+    the solver's info."""
+    import torch
+
+    optimize = slam.pose_graph_optimize
+
+    def run():
+        g = slam.graph
+        start = max(0, slam.view_num - slam.pgo_window_size)
+        record["opt_nodes"] = int(g.opt_mask_for_window(
+            start, slam.view_num - 1, slam.loop_related_views).sum())
+        record["snapshot"] = pre_pgo_snapshot(slam)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        info = optimize()
+        torch.cuda.synchronize()
+        record["seconds"] = time.perf_counter() - t0
+        record["info"] = info
+        return info
+
+    slam.pose_graph_optimize = run
+
+
+def run_long_sequence(card: str) -> dict:
+    """Phase 14 (a)-(c): configs/default.yaml's model at full width
+    (24x1024 encoder, 12x768 decoder, DPT and pose heads, 224x224) with
+    random weights from a seeded generator, stride-1 keyframing over
+    LONG_KEYFRAMES + 1 frames of the box-scene orbit, the final PGO by PCG
+    (LONG_PGO).
+    (a) run_sequence with counts set to 0 just before: view count, finite
+        trajectory, K1 launches equal to those derived, no plain or fused
+        attention, one PGO solve and by PCG; the PGO's seconds, optimised
+        nodes, LM steps and CG iterations.
+    (b) the state saved every LONG_STATE_EVERY keyframes (bytes, seconds);
+        the middle save loaded into a fresh OnlineSLAM on the same frontend
+        (seconds) and run to the end: its graph, view names and store just
+        before the final PGO bit-identical to (a)'s, and after it the
+        trajectory too (slam/pgo.py sums over edges in a fixed order, so a
+        solve repeats bit for bit); the final losses and how far (a)'s PGO
+        moved the poses are printed beside it; its K1 launches equal to
+        those derived.
+    (c) cli/evaluate.py's evaluate_scene over every EVAL_STRIDE-th frame of
+        the orbit as a dataset with GT, reconstruction on: finite ATE and
+        chamfer, evaluation_results.json written, K1 launches equal to
+        those derived."""
+    import json as _json
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vista_slam_tpu_torch.cli.common import build_slam
+    from vista_slam_tpu_torch.cli.evaluate import evaluate_scene
+    from vista_slam_tpu_torch.cli.run import PREFETCH_CHUNK, run_sequence
+    from vista_slam_tpu_torch.ops import attention
+    from vista_slam_tpu_torch.slam import pgo
+    from vista_slam_tpu_torch.utils.config import make_config
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_long_")
+    try:
+        n = LONG_KEYFRAMES + 1  # stride-1 keyframing starts at frame 1
+        frames = orbit_frames(n)
+        log(f"long sequence: {n} frames of the box-scene orbit at 224x224 rendered in "
+            f"{time.perf_counter() - t_phase:.2f} s (host, 8 threads) [{card}]")
+        cfg = make_config(DEFAULT, keyframe_detection="stride", stride=1, device="cuda",
+                          output_dir=os.path.join(tmp, "run"),
+                          state_every=LONG_STATE_EVERY, pgo=LONG_PGO)
+        os.makedirs(cfg.output_dir)
+        t0 = time.perf_counter()
+        slam = build_slam(cfg)
+        mc = slam.frontend.cfg
+        log(f"long sequence: model built in {time.perf_counter() - t0:.2f} s "
+            f"({sum(p.numel() for p in slam.frontend.model.parameters()) / 1e6:.1f} M params, "
+            f"img_size {list(mc.img_size)}, use_flash {mc.use_flash}) [{card}]")
+
+        saves = []
+        save_state = slam.save_state
+
+        def save_numbered(path, **extra):  # keep every save, time it
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            save_state(path, **extra)
+            secs = time.perf_counter() - t
+            kept = f"{path}.{slam.view_num}"
+            os.replace(path, kept)
+            saves.append((slam.view_num, kept, os.path.getsize(kept), secs))
+
+        slam.save_state = save_numbered
+        rec_a: dict = {}
+        watch_pgo(slam, rec_a)
+
+        # (a)
+        expected = (mc.enc_depth * math.ceil(LONG_KEYFRAMES / PREFETCH_CHUNK)
+                    + 2 * mc.dec_depth * (LONG_KEYFRAMES - 1))
+        reset_counts()
+        pgo.CALLS.update(dense=0, pcg=0)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_sequence(slam, frames, cfg, progress=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts, calls, solves = launch_counts(), dict(attention.CALLS), dict(pgo.CALLS)
+        traj = np.stack([slam.graph.view_pose_scale(v)[0] for v in range(slam.view_num)])
+        info = rec_a["info"]
+        td = slam.get_time_dict()
+        save_s = sum(s[3] for s in saves)
+        log(f"long sequence (a): {slam.view_num} keyframes in {wall:.3f} s "
+            f"({(wall - rec_a['seconds'] - save_s) / slam.view_num * 1e3:.2f} ms a keyframe "
+            f"without the PGO and the saves), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+        log("long sequence (a) stage times (s, host clock): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in td.items()) + f" [{card}]")
+        log(f"long sequence (a): final PGO over {rec_a['opt_nodes']} optimised nodes "
+            f"({slam.graph.num_nodes} node slots, {slam.graph.num_edges} edges; dense_max "
+            f"{pgo.PGOConfig().dense_max}, config pgo {LONG_PGO}) by {info['solver']} in "
+            f"{rec_a['seconds']:.3f} s: "
+            f"{info['steps']} LM steps, CG iterations per step {info['cg_iters']} "
+            f"({sum(info['cg_iters'])} in all), loss {info['loss0']:.6g} -> "
+            f"{info['loss']:.6g}; solves by route {solves} [{card}]")
+        log(f"long sequence (a): K1 launches {counts['K1']} (expected {expected}), attention "
+            f"paths {calls}, trajectory {list(traj.shape)}")
+        if slam.view_num != LONG_KEYFRAMES:
+            raise AssertionError(f"view_num {slam.view_num} != {LONG_KEYFRAMES}")
+        if traj.shape != (LONG_KEYFRAMES, 4, 4) or not np.isfinite(traj).all():
+            raise AssertionError("long sequence: trajectory is not a finite [V,4,4] array")
+        if (counts != dict.fromkeys(counts, 0) | {"K1": expected}
+                or calls != {"flash": expected, "plain": 0, "fused": 0}):
+            raise AssertionError(f"long sequence: launches {counts} / paths {calls}, "
+                                 f"expected {expected} flash launches only")
+        if solves != {"dense": 0, "pcg": 1}:
+            raise AssertionError(f"long sequence: the final PGO ({rec_a['opt_nodes']} nodes, "
+                                 f"solves {solves}) did not go through PCG")
+        long_a = {"launches": counts["K1"], "pgo_s": rec_a["seconds"], "info": info,
+                  "opt_nodes": rec_a["opt_nodes"], "wall_s": wall}
+
+        # (b)
+        log("long sequence (b): state saves (keyframe, bytes, save s) "
+            f"{[(v, b, round(s, 3)) for v, _, b, s in saves]} [{card}]")
+        views = [v for v, *_ in saves]
+        if views != list(range(LONG_STATE_EVERY, LONG_KEYFRAMES + 1, LONG_STATE_EVERY)):
+            raise AssertionError(f"long sequence: saves at {views}")
+        mid_view, mid_path, mid_bytes, mid_s = saves[(len(saves) - 1) // 2]
+        cfg_b = make_config(cfg, output_dir=os.path.join(tmp, "resumed"), state_every=0)
+        resumed = build_slam(cfg_b, frontend=slam.frontend)
+        t0 = time.perf_counter()
+        extras = resumed.load_state(mid_path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        rec_b: dict = {}
+        watch_pgo(resumed, rec_b)
+        # the prefetch chunks from the resumed keyframe's on, and a decode
+        # for each keyframe left
+        expected_b = (mc.enc_depth * ((LONG_KEYFRAMES - 1) // PREFETCH_CHUNK
+                                      - mid_view // PREFETCH_CHUNK + 1)
+                      + 2 * mc.dec_depth * (LONG_KEYFRAMES - mid_view))
+        reset_counts()
+        run_sequence(resumed, frames, cfg_b, progress=False,
+                     start_frame=int(extras["frame_cursor"]) + 1)
+        launches_b = launch_counts()
+        same = snapshots_equal(rec_b["snapshot"], rec_a["snapshot"])
+        traj_b = np.stack([resumed.graph.view_pose_scale(v)[0]
+                           for v in range(resumed.view_num)])
+        extent = float(np.abs(traj[:, :3, 3]).max())
+        gap = float(np.abs(traj_b - traj).max()) if traj_b.shape == traj.shape else np.inf
+        loss_gap = abs(rec_b["info"]["loss"] - info["loss"]) / max(info["loss"], 1e-30)
+        before = rec_a["snapshot"]["node_poses"]
+        moved = float(np.abs(slam.graph.node_poses[:len(before)] - before).max())
+        log(f"long sequence (b): resumed from the save at keyframe {mid_view} "
+            f"({mid_bytes} bytes, saved in {mid_s:.3f} s, loaded in {load_s:.3f} s); "
+            f"before the final PGO bit-identical to (a): "
+            f"{all(same.values())} {[k for k, v in same.items() if not v] or ''}; after "
+            f"it max |pose (b) - pose (a)| {gap:.3e} (trajectory extent {extent:.3e}; (a)'s "
+            f"PGO moved node entries by up to {moved:.3e}), final loss {rec_b['info']['loss']:.6g} vs {info['loss']:.6g} "
+            f"(relative gap {loss_gap:.2e}, {rec_b['info']['steps']} vs {info['steps']} LM "
+            f"steps); its K1 launches {launches_b['K1']} (expected {expected_b}) [{card}]")
+        if launches_b != dict.fromkeys(launches_b, 0) | {"K1": expected_b}:
+            raise AssertionError(f"long sequence: resumed run's launches {launches_b}")
+        if not all(same.values()):
+            raise AssertionError(f"long sequence: resumed state differs before the PGO: {same}")
+        if not (np.isfinite(traj_b).all() and gap == 0.0):
+            raise AssertionError("long sequence: resumed trajectory differs after the PGO")
+        del resumed, rec_b, rec_a
+        torch.cuda.empty_cache()
+
+        # (c)
+        cfg_c = make_config(cfg, stride=EVAL_STRIDE, state_every=0,
+                            output_dir=os.path.join(tmp, "eval"))
+
+        class Orbit:  # the orbit as an evaluation dataset with GT
+            def __len__(self):
+                return len(frames)
+
+            def __getitem__(self, i):
+                return frames[i]
+
+        slam_c = build_slam(cfg_c, frontend=slam.frontend)
+        out_c = os.path.join(cfg_c.output_dir, "orbit")
+        reset_counts()
+        t0 = time.perf_counter()
+        res = evaluate_scene(slam_c, Orbit(), cfg_c, out_c, do_recon=True)
+        eval_s = time.perf_counter() - t0
+        launches_c = launch_counts()
+        n_c = len(range(1, n, EVAL_STRIDE))  # evaluate_scene's keyframes
+        expected_c = (mc.enc_depth * math.ceil(n_c / PREFETCH_CHUNK)
+                      + 2 * mc.dec_depth * (n_c - 1))
+        written = _json.load(open(os.path.join(out_c, "evaluation_results.json")))
+        log(f"long sequence (c): evaluate_scene over {res['n_keyframes']} keyframes (stride "
+            f"{EVAL_STRIDE}) with reconstruction in {eval_s:.2f} s: {res}; "
+            f"evaluation_results.json {written == res}; K1 launches "
+            f"{launches_c['K1']} (expected {expected_c}) [{card}]")
+        if launches_c != dict.fromkeys(launches_c, 0) | {"K1": expected_c}:
+            raise AssertionError(f"long sequence: evaluation's launches {launches_c}")
+        if not (written == res and res["n_keyframes"] == n_c and all(np.isfinite(res[k]) for k in (
+                "ate_rmse", "ate_mean", "recon_acc", "recon_comp", "recon_chamfer"))):
+            raise AssertionError(f"long sequence: evaluation not finite or not written: {res}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    secs = time.perf_counter() - t_phase
+    log(f"long sequence (a)-(c): in {secs:.2f} s [{card}]")
+    return {**long_a, "state_bytes": mid_bytes, "save_s": mid_s, "load_s": load_s,
+            "eval": res, "phase_s": secs}
+
+
 KERNELS = {  # name, source, the TPU kernel it replaces
     "K1": ("flash_attn_fwd", "vista_slam_tpu_torch/csrc/flash_attn_fwd.cu",
            "vista_slam_tpu/ops/pallas/flash.py:76"),
@@ -1704,6 +2181,13 @@ def main() -> int:
     knob = run_train_slice(card, "memory_knob")
     torch.cuda.empty_cache()
     trainer = run_trainer(card)
+    torch.cuda.empty_cache()
+    t_long = time.perf_counter()
+    long_seq = run_long_sequence(card)
+    torch.cuda.empty_cache()
+    time_spd_inverses(card)
+    sweep_pgo(card)
+    log(f"long sequence phase (a)-(d): in {time.perf_counter() - t_long:.2f} s [{card}]")
 
     bounds = {**{k: v for k, v in attn_bounds(K1_TIMED_AT, 769, 2).items() if k == "K1"},
               **{k: v for k, v in attn_bounds(K2_TIMED_AT, 769, 2).items() if k != "K1"},
@@ -1734,7 +2218,9 @@ def main() -> int:
     by_path = {k: {"slam": slam_launches if k == "K1" else 0,
                    "train": train["launches"][k],
                    "train_memory_knob": knob["launches"][k],
-                   "trainer": trainer["launches"][k]} for k in KERNELS}
+                   "trainer": trainer["launches"][k],
+                   "long_sequence": long_seq["launches"] if k == "K1" else 0}
+               for k in KERNELS}
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
         "replaces": KERNELS[k][2], "launches": sum(by_path[k].values()),

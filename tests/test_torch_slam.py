@@ -302,6 +302,21 @@ def test_chip_smoke_settings_are_highres_yaml():
     assert set(want["model"]) == set(chip_smoke.HIGHRES["model"])
 
 
+def test_chip_smoke_long_sequence_settings_are_default_yaml():
+    """Phase 14's SLAM settings are configs/default.yaml's, which has no
+    model section (the 224x224 model, attention by sequence length)."""
+    import yaml
+
+    import chip_smoke
+
+    with open(os.path.join(REPO, "configs", "default.yaml")) as f:
+        want = yaml.safe_load(f)
+    for k, v in chip_smoke.DEFAULT.items():
+        assert want[k] == v, k
+    assert "model" not in want
+    assert chip_smoke.LONG_KEYFRAMES <= want["max_view_num"]
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["in_repo", "alone"])
 def test_chip_smoke_fails_without_a_gpu_or_the_port(tmp_path, alone):
     """No CUDA device (this machine) or no port beside the script: a

@@ -83,10 +83,13 @@ def build_pgo_config(cfg: Config):
     return PGOConfig(**overrides) if overrides else None
 
 
-def build_slam(cfg: Config, live_mode: bool = False):
+def build_slam(cfg: Config, live_mode: bool = False, frontend=None):
+    """An OnlineSLAM for ``cfg``; ``frontend`` reuses a built one (same
+    model and weights) instead of building the model again."""
     from ..slam.online_slam import OnlineSLAM
 
-    frontend = build_frontend(cfg)
+    if frontend is None:
+        frontend = build_frontend(cfg)
     return OnlineSLAM(
         frontend, loop_detector=build_loop_detector(cfg),
         verbose=bool(cfg.get("verbose", False)),

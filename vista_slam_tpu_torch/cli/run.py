@@ -7,7 +7,8 @@ Usage:
 The same loop as vista_slam_tpu/cli/run.py (reference: run.py:93-265):
 stride / flow / flow_stride keyframing with the automatic restart in stride
 mode, batch-encoded keyframes ahead of the loop in stride mode, a final
-forced PGO, stage timing and the artifact dump. ``run_sequence`` takes any
+forced PGO, stage timing, the artifact dump, a state checkpoint every
+``state_every`` keyframes and ``--resume-state``. ``run_sequence`` takes any
 indexable dataset of {'rgb', 'gray', 'img_name'} dicts, so it runs from
 in-memory frames; yaml, PIL and the image dataset are imported in ``main``.
 """
@@ -27,15 +28,22 @@ from .common import build_slam, select_stride_indices
 PREFETCH_CHUNK = 8  # keyframes batch-encoded ahead in stride mode
 
 
-def run_sequence(slam, dataset, cfg, progress: bool = True) -> float:
-    """Drive the keyframe loop over a dataset; returns the data-read time."""
+def run_sequence(slam, dataset, cfg, progress: bool = True,
+                 start_frame: int = 0) -> float:
+    """Drive the keyframe loop over a dataset; returns the data-read time.
+
+    Every ``cfg.state_every`` keyframes (0: never) the SLAM state goes to
+    ``<output_dir>/slam_state.npz`` with the frame cursor; start_frame > 0
+    resumes after OnlineSLAM.load_state (the saved cursor + 1)."""
     n = len(dataset)
     stride_mode = cfg.keyframe_detection == "stride"
     stride_idxes = (select_stride_indices(n, cfg.stride, cfg.max_view_num)
                     if stride_mode else None)
+    state_every = int(cfg.get("state_every", 0) or 0)
+    state_path = os.path.join(cfg.output_dir, "slam_state.npz")
     read_time = 0.0
-    t = 0
-    first = True
+    t = start_frame
+    first = start_frame == 0
     is_optimized = False
     pending: dict[int, tuple] = {}
     while t < n:
@@ -48,7 +56,8 @@ def run_sequence(slam, dataset, cfg, progress: bool = True) -> float:
             elif t in pending:
                 data, feat = pending.pop(t)
             else:
-                # chunks sit at fixed positions of the keyframe order
+                # chunks sit at fixed positions of the keyframe order, so a
+                # resumed run encodes the same batches as an uninterrupted one
                 ordered = sorted(stride_idxes)
                 pos = ordered.index(t)
                 lo = pos - pos % PREFETCH_CHUNK
@@ -72,6 +81,8 @@ def run_sequence(slam, dataset, cfg, progress: bool = True) -> float:
                  "view_name": data.get("img_name", f"frame_{t}"),
                  "enc_feat": feat}
         is_optimized = slam.step(value, force_pgo=(t == n - 1))
+        if state_every and slam.view_num % state_every == 0:
+            slam.save_state(state_path, frame_cursor=t)
         if cfg.get("rerun_vis") or cfg.get("rerun_save"):
             from ..utils import rerun_vis
 
@@ -120,11 +131,10 @@ def main(argv=None):
                         help="save a rerun recording next to the outputs")
     parser.add_argument("--verbose", action="store_true")
     parser.add_argument("--resume-state", default=None,
-                        help="resume from a saved SLAM state (not ported yet)")
+                        help="resume from an OnlineSLAM.save_state checkpoint "
+                             "(written every cfg.state_every keyframes as "
+                             "<output>/slam_state.npz)")
     args = parser.parse_args(argv)
-    if args.resume_state:
-        raise SystemExit("--resume-state: SLAM state checkpointing is not ported "
-                         "yet (queued in ROADMAP.md)")
 
     import torch
 
@@ -148,12 +158,18 @@ def main(argv=None):
     log(f"{len(dataset)} frames")
 
     slam = build_slam(cfg)
+    start_frame = 0
+    if args.resume_state:
+        extras = slam.load_state(args.resume_state)
+        start_frame = int(extras.get("frame_cursor", -1)) + 1
+        log(f"resumed {slam.view_num} keyframes from {args.resume_state}; "
+            f"continuing at frame {start_frame}")
     if cfg.get("rerun_vis") or cfg.get("rerun_save"):
         rerun_vis.init("slam",
                        save_path=(os.path.join(cfg.output_dir, "recording.rrd")
                                   if cfg.get("rerun_save") else None),
                        url=cfg.get("rerun_url"))
-    read_time = run_sequence(slam, dataset, cfg)
+    read_time = run_sequence(slam, dataset, cfg, start_frame=start_frame)
 
     log(f"total keyframes detected: {slam.view_num}")
     td = slam.get_time_dict()

@@ -9,7 +9,8 @@ frontend's fused decode (one device program and one fetch per batch), the
 edge-batch replay reads the frontend's already-fetched host outputs, PGO is
 the torch solver, and the OpenCV flow tracker is built only when flow
 keyframing first asks for it (stride keyframing runs on hosts without
-OpenCV). State checkpointing (save_state / load_state) is not ported yet.
+OpenCV). save_state / load_state write and read the JAX package's state
+file: the same npz keys, dtypes and shapes.
 """
 
 from __future__ import annotations
@@ -45,6 +46,20 @@ class LazyFlowTracker:
         if self._tracker is None:
             self._tracker = FlowTracker(self.min_disparity)
         return self._tracker.is_new_keyframe(gray)
+
+    @property
+    def kf_gray(self):
+        return None if self._tracker is None else self._tracker.kf_gray
+
+    @property
+    def kf_pts(self):
+        return None if self._tracker is None else self._tracker.kf_pts
+
+    def restore(self, kf_gray: np.ndarray, kf_pts: np.ndarray | None):
+        """Set a saved keyframe (OnlineSLAM.load_state); builds the tracker."""
+        if self._tracker is None:
+            self._tracker = FlowTracker(self.min_disparity)
+        self._tracker.kf_gray, self._tracker.kf_pts = kf_gray, kf_pts
 
 
 class OnlineSLAM:
@@ -377,13 +392,150 @@ class OnlineSLAM:
         return td
 
     # ------------------------------------------------------------------
+    def _fingerprint(self) -> np.ndarray:
+        return np.asarray([self.image_resolution[0], self.image_resolution[1],
+                           self.max_view_num, self.neighbor_edge_num,
+                           self.loop_edge_num], np.int64)
+
     def save_state(self, path: str, **extra):
-        raise NotImplementedError("SLAM state checkpointing is not ported yet "
-                                  "(queued in ROADMAP.md)")
+        """Checkpoint the whole mid-run SLAM state to one npz of explicit
+        arrays (no pickled objects), with the JAX package's keys, dtypes and
+        shapes: graph buffers, the pointmap store (fp16), the encoder
+        feature cache (fp32, the cache's dtype), the BoW database, the
+        flow tracker's keyframe and the bookkeeping. Weights and config are
+        not saved: resume into an OnlineSLAM built with the same config and
+        frontend. ``extra`` (e.g. the driving loop's frame cursor) comes
+        back from load_state.
+
+        The file is written uncompressed (the JAX package compresses; numpy
+        reads both): the state of a 400-keyframe run is about a gigabyte of
+        features and maps that deflate barely shrinks and takes tens of
+        seconds to compress. It goes to a temporary file first and replaces
+        ``path`` atomically, so a crash mid-write keeps the last good file.
+        """
+        g = self.graph
+        nn, ne, v = g.num_nodes, g.num_edges, self.view_num
+        state: dict[str, np.ndarray] = {
+            # checked on load: other buffer geometry would silently
+            # truncate or misplace the state
+            "config_fingerprint": self._fingerprint(),
+            "view_num": np.int64(v),
+            "num_nodes": np.int64(nn),
+            "num_edges": np.int64(ne),
+            "node_poses": g.node_poses[:nn],
+            "node_view": g.node_view[:nn],
+            "node_connected_view": g.node_connected_view[:nn],
+            "edges": g.edges[:ne],
+            "edge_poses": g.edge_poses[:ne],
+            "edge_confs": g.edge_confs[:ne],
+            "best_views": np.asarray(sorted(g.view_best_node), np.int32),
+            "loop_related_views": np.asarray(sorted(self.loop_related_views),
+                                             np.int32),
+            "view_names": np.asarray(self.view_names),
+            "imgs": (np.stack(self.imgs) if self.imgs
+                     else np.zeros((0,), np.float32)),
+            "time_keys": np.asarray(list(self.time_dict)),
+            "time_vals": np.asarray(list(self.time_dict.values()), np.float64),
+        }
+        bv = [g.view_best_node[int(k)] for k in state["best_views"]]
+        state["best_nodes"] = np.asarray([n for n, _ in bv], np.int32)
+        state["best_confs"] = np.asarray([c for _, c in bv], np.float32)
+        if self.enc_feats:
+            state["enc_feats"] = torch.cat(self.enc_feats).float().cpu().numpy()
+        if self.pointmaps is not None:
+            state["store_depth"] = self.pointmaps.depth[:nn].cpu().numpy()
+            state["store_conf"] = self.pointmaps.conf[:nn].cpu().numpy()
+            state["store_intri"] = self.pointmaps.intri[:nn]
+        ft = self.flow_tracker
+        if ft.kf_gray is not None:
+            state["flow_kf_gray"] = ft.kf_gray
+            if ft.kf_pts is not None:
+                state["flow_kf_pts"] = ft.kf_pts
+        if self.lc_detector is not None:
+            feats = self.lc_detector.bow_feats
+            state["bow_present"] = np.asarray([f is not None for f in feats], bool)
+            present = [f for f in feats if f is not None]
+            state["bow_offsets"] = np.cumsum(
+                [0] + [len(f.ids) for f in present]).astype(np.int64)
+            state["bow_ids"] = (np.concatenate([f.ids for f in present])
+                                if present else np.zeros((0,), np.int32))
+            state["bow_vals"] = (np.concatenate([f.vals for f in present])
+                                 if present else np.zeros((0,), np.float32))
+        for k, val in extra.items():
+            state[f"extra_{k}"] = np.asarray(val)
+        tmp = f"{path}.{os.getpid()}.tmp.npz"  # .npz: savez appends it otherwise
+        np.savez(tmp, **state)
+        os.replace(tmp, path)
 
     def load_state(self, path: str) -> dict:
-        raise NotImplementedError("SLAM state checkpointing is not ported yet "
-                                  "(queued in ROADMAP.md)")
+        """Restore a save_state checkpoint (this package's or the JAX
+        package's) into this freshly built, same-config OnlineSLAM, which
+        then continues stepping; the pointmap store and the feature cache
+        go to the frontend's device. Returns the ``extra`` metadata given
+        to save_state."""
+        z = np.load(path, allow_pickle=False)
+        if "config_fingerprint" in z:
+            want = self._fingerprint()
+            got = np.asarray(z["config_fingerprint"], np.int64)
+            if not np.array_equal(want, got):
+                raise ValueError(
+                    f"checkpoint config {got.tolist()} does not match this "
+                    f"instance {want.tolist()} "
+                    "(img_h, img_w, max_view_num, neighbor_edge_num, "
+                    "loop_edge_num)")
+        g = self.graph
+        nn, ne = int(z["num_nodes"]), int(z["num_edges"])
+        # checked before reset() clears the live state
+        if nn > g.max_nodes or ne > g.max_edges:
+            raise ValueError(
+                f"checkpoint ({nn} nodes / {ne} edges) larger than this "
+                f"instance's buffers ({g.max_nodes} / {g.max_edges})")
+        self.reset()
+        g.num_nodes, g.num_edges = nn, ne
+        g.node_poses[:nn] = z["node_poses"]
+        g.node_view[:nn] = z["node_view"]
+        g.node_connected_view[:nn] = z["node_connected_view"]
+        g.edges[:ne] = z["edges"]
+        g.edge_poses[:ne] = z["edge_poses"]
+        g.edge_confs[:ne] = z["edge_confs"]
+        for n in range(nn):  # gap slots keep view -1 and stay unregistered
+            v = int(g.node_view[n])
+            if v >= 0:
+                g.view_to_nodes.setdefault(v, []).append(n)
+        g.view_best_node = {
+            int(v): (int(n), float(c))
+            for v, n, c in zip(z["best_views"], z["best_nodes"], z["best_confs"])}
+
+        self.view_num = int(z["view_num"])
+        self.view_names = [str(s) for s in z["view_names"]]
+        self.imgs = list(z["imgs"]) if z["imgs"].ndim == 4 else []
+        self.loop_related_views = set(int(v) for v in z["loop_related_views"])
+        self.time_dict = dict(zip([str(k) for k in z["time_keys"]],
+                                  [float(x) for x in z["time_vals"]]))
+        if "enc_feats" in z:
+            feats = torch.from_numpy(z["enc_feats"]).to(self.frontend.device)
+            self.enc_feats = [feats[k: k + 1] for k in range(feats.shape[0])]
+        if "store_depth" in z:
+            store = self._store(z["store_depth"].shape[1:])
+            store.write_batch(np.arange(nn, dtype=np.int64), z["store_depth"],
+                              z["store_conf"], z["store_intri"])
+        if "flow_kf_gray" in z:
+            self.flow_tracker.restore(z["flow_kf_gray"], z["flow_kf_pts"]
+                                      if "flow_kf_pts" in z else None)
+        if self.lc_detector is not None and "bow_present" in z:
+            from ..native.bow import BowVector
+
+            off, k = z["bow_offsets"], 0
+            feats = []
+            for present in z["bow_present"]:
+                if not present:
+                    feats.append(None)
+                    continue
+                lo, hi = int(off[k]), int(off[k + 1])
+                feats.append(BowVector(z["bow_ids"][lo:hi], z["bow_vals"][lo:hi]))
+                k += 1
+            self.lc_detector.bow_feats = feats
+        return {k[len("extra_"):]: z[k] for k in z.files if k.startswith("extra_")}
 
     # ------------------------------------------------------------------
     def save_data_all(self, output_folder: str, *, save_view_graph=True,
