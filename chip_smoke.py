@@ -129,6 +129,20 @@ Phases, each printed on its own lines; any failure exits non-zero:
                buffers (4800 nodes / 5200 edges) at 512, 1024, 2048 and 4790
                optimised nodes (median of 3, warm), final losses within
                0.2%, the crossover beside PGOConfig.dense_max.
+ 15. any aspect — configs/highres.yaml's model at full width with random
+               weights: (a) predict_pair_mixed_aspect on 4 pairs in the
+               384x512 buffer (2 landscape, 1 portrait stored transposed, 1
+               landscape with a portrait partner), each sample held against
+               its pair alone, K1 launches equal to those derived, no plain
+               or fused-train attention; (b) a linear-head model's forward
+               and a 6D pose head (rotations on SO(3) to 1e-4); (c) the
+               head_bf16 DPT output against the fp32 head on the same hooks,
+               and a warm batch-8 decode_pairs_fused with each head (median
+               of 10, a reading); (d) decode_pairs (fetch true and false)
+               against decode_pairs_fused, one decode traced by
+               utils/profiling.py::profile_to (K1's kernel in the trace), and
+               a 10-keyframe run_sequence through a frontend without the
+               fused step against the fused run's trajectory.
 Each launch count is set to 0 just before a path runs and read just after.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the port next to
@@ -2107,6 +2121,291 @@ def run_long_sequence(card: str) -> dict:
             "eval": res, "phase_s": secs}
 
 
+# phase 15 (any aspect): configs/highres.yaml's model at full width; 4 pairs in
+# the 384x512 landscape buffer: 2 landscape, 1 portrait (512x384, stored
+# transposed), 1 landscape with a portrait partner
+ANY_ASPECT_KINDS = (("landscape", "landscape"), ("landscape", "landscape"),
+                    ("portrait", "portrait"), ("landscape", "portrait"))
+# bf16 bound, normwise (max |a - b| / max |b|), for a sample of the mixed
+# batch against the same pair predicted alone, and for the plain decode's
+# per-pair outputs against the fused decode's: the same kernels on the same
+# inputs, the batch composition changing only the GEMMs' tiling
+ANY_ASPECT_TOL = 2e-2
+PLAIN_TRAJ_TOL = 1e-3  # the plain-decode run's trajectory against the fused run's
+K1_KERNEL = "flash_fwd_bf16"  # K1's bf16 kernel (csrc/flash_attn_fwd.cu), in traces
+
+
+class PlainFrontend:
+    """A FrontendEngine seen without decode_pairs_fused and
+    encode_decode_pairs_fused: OnlineSLAM then takes its plain path
+    (decode_pairs without fetch, store write, scale reductions, one fetch)."""
+
+    _HIDDEN = ("decode_pairs_fused", "encode_decode_pairs_fused")
+
+    def __init__(self, engine):
+        self._engine = engine
+
+    def __getattr__(self, name):
+        if name in self._HIDDEN:
+            raise AttributeError(name)
+        return getattr(self._engine, name)
+
+
+def normwise(got, want) -> float:
+    """max |got - want| / max |want|, fp32 on the host."""
+    import torch
+
+    got, want = torch.as_tensor(got).float().cpu(), torch.as_tensor(want).float().cpu()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-12)).item()
+
+
+def check_path_counts(tag: str, expected_k1: int) -> int:
+    """The launches since reset_counts(): K1 == expected_k1 and no other
+    kernel, every attention on the flash path."""
+    from vista_slam_tpu_torch.ops import attention
+
+    counts, calls = launch_counts(), dict(attention.CALLS)
+    if (counts != dict.fromkeys(counts, 0) | {"K1": expected_k1}
+            or calls != {"flash": expected_k1, "plain": 0, "fused": 0}):
+        raise AssertionError(f"{tag}: launches {counts} / paths {calls}, expected "
+                             f"{expected_k1} K1 launches through flash only")
+    return counts["K1"]
+
+
+def run_any_aspect(card: str) -> dict:
+    """Phase 15: configs/highres.yaml's model at full width (24x1024
+    encoder, 12x768 decoder, 384x512) with random weights from the seeded
+    generator, through the paths a user of any aspect, of either head
+    variant and of a frontend without the fused step reaches.
+    (a) predict_pair_mixed_aspect on ANY_ASPECT_KINDS: each sample's pts3d,
+        conf and pose against its pair alone, normwise within
+        ANY_ASPECT_TOL: a landscape pair against predict_pair_any_aspect; the
+        portrait pair against the forward on its true 512x384 images (the
+        mixed path embeds a portrait sample in its true orientation, as the
+        reference's ManyAR patch embed does, where predict_pair_any_aspect
+        transposes a portrait pair into landscape first: another input to
+        the model, run here for finite outputs of the true shape); the mixed
+        pair against predict_pair_mixed_aspect on it alone. K1's launches
+        equal to those derived (two encodes and one decode), no plain or
+        fused-train attention.
+    (b) a head_type 'linear' model's forward (finite pointmaps; K1 derived)
+        and a '6D' pose head over its pose tokens: rotations orthonormal with
+        det +1 to 1e-4.
+    (c) head_bf16: the DPT head in bf16 against fp32 on the same hooks
+        (normwise gap, printed), and a warm batch-8 decode_pairs_fused with
+        the head in fp32 and in bf16 (median of 10 by CUDA events): a
+        reading, not gated.
+    (d) decode_pairs (fetch true and false) against decode_pairs_fused on
+        the same features, within ANY_ASPECT_TOL; one decode_pairs traced by
+        utils/profiling.py::profile_to (the trace holds K1's kernel); a
+        10-keyframe run_sequence through PlainFrontend against the same run
+        on the fused step: trajectories within PLAIN_TRAJ_TOL, K1 derived.
+    Returns the K1 launches of the paths (a), (b) and (d)'s plain run."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vista_slam_tpu_torch.cli.common import build_frontend, build_slam
+    from vista_slam_tpu_torch.cli.run import PREFETCH_CHUNK, run_sequence
+    from vista_slam_tpu_torch.models.heads import PoseHead
+    from vista_slam_tpu_torch.models.sta import (STA, predict_pair_any_aspect,
+                                                 predict_pair_mixed_aspect)
+    from vista_slam_tpu_torch.slam.pointmap_store import DevicePointmapStore
+    from vista_slam_tpu_torch.utils.config import make_config
+    from vista_slam_tpu_torch.utils.profiling import profile_to
+
+    t_phase = time.perf_counter()
+    cfg = make_config(HIGHRES, keyframe_detection="stride", stride=1, device="cuda")
+    h, w = cfg.model["img_size"]
+    fe = build_frontend(cfg)
+    model, mc = fe.model, fe.cfg
+    per_forward = 2 * mc.enc_depth + 2 * mc.dec_depth  # two encodes, one decode
+    land = orbit_frames(N_FRAMES, (h, w))
+    port = orbit_frames(4, (w, h))
+    launches = {}
+
+    # (a) the mixed-aspect batch -------------------------------------------
+    pick = {"landscape": iter(land), "portrait": iter(port)}
+    views = [[torch.from_numpy(next(pick[kind])["rgb"]).to("cuda") for kind in kinds]
+             for kinds in ANY_ASPECT_KINDS]
+    shapes = [[list(v.shape[:2]) for v in pair] for pair in views]
+    # portrait views are stored transposed in the landscape buffer
+    buf = [torch.stack([pair[s] if pair[s].shape[0] <= pair[s].shape[1]
+                        else pair[s].transpose(0, 1) for pair in views]) for s in range(2)]
+    B = len(views)
+    with torch.inference_mode():
+        reset_counts()
+        t0 = time.perf_counter()
+        out = predict_pair_mixed_aspect(model, buf[0], buf[1], [sh[0] for sh in shapes],
+                                        [sh[1] for sh in shapes])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches["mixed"] = check_path_counts("any aspect (a)", per_forward)
+        errs = []
+        for k, (pair, kinds) in enumerate(zip(views, ANY_ASPECT_KINDS)):
+            if kinds == ("landscape", "landscape"):
+                alone = predict_pair_any_aspect(model, pair[0][None], pair[1][None])
+            elif kinds == ("portrait", "portrait"):
+                alone = model(pair[0][None], pair[1][None])
+                via = predict_pair_any_aspect(model, pair[0][None], pair[1][None])
+                if (via["pts3d"].shape != alone["pts3d"].shape
+                        or not all(torch.isfinite(via[key]).all() for key in via)):
+                    raise AssertionError("predict_pair_any_aspect on the portrait pair: "
+                                         "non-finite or not in the true orientation")
+            else:
+                alone = predict_pair_mixed_aspect(model, buf[0][k:k + 1], buf[1][k:k + 1],
+                                                  [shapes[k][0]], [shapes[k][1]])
+            for d, row in enumerate((k, B + k)):
+                portrait = bool(out["portrait_mask"][row])
+                e = {}
+                for key in ("pts3d", "conf", "pose"):
+                    got = out[key][row]
+                    if key != "pose" and portrait and kinds[0] == kinds[1]:
+                        got = got.transpose(0, 1)  # buffer layout -> true orientation
+                    if not torch.isfinite(got).all():
+                        raise AssertionError(f"any aspect (a) pair {k} {key}: non-finite")
+                    e[key] = normwise(got, alone[key][d])
+                errs.append(e)
+                log(f"any aspect (a) pair {k} ({kinds[0]}/{kinds[1]}) direction {d + 1}"
+                    f"{' (portrait)' if portrait else ''}: normwise err vs alone "
+                    + ", ".join(f"{key} {v:.3e}" for key, v in e.items())
+                    + f" (bound {ANY_ASPECT_TOL:g}) [{card}]")
+    worst = max(v for e in errs for v in e.values())
+    log(f"any aspect (a): {B} pairs at buffer {h}x{w}, mask "
+        f"{out['portrait_mask'].int().tolist()}, in {secs:.3f} s (cold), K1 launches "
+        f"{launches['mixed']} (expected {per_forward}), worst normwise err {worst:.3e} "
+        f"[{card}]")
+    if worst > ANY_ASPECT_TOL:
+        raise AssertionError(f"mixed-aspect batch disagrees with the pairs alone: {worst}")
+    del out, alone
+
+    # (b) head variants ----------------------------------------------------
+    lin = STA(dataclasses.replace(mc, head_type="linear")).to("cuda").eval()
+    lin.init_weights_(torch.Generator(device="cuda").manual_seed(5))
+    head6 = PoseHead(mc.dec_dim, rot_representation="6D").to("cuda")
+    head6.reset_rotation_()  # zero kernel, identity bias; then a random kernel
+    with torch.no_grad():
+        head6.fc_rot.weight.normal_(0.0, 0.05, generator=torch.Generator(
+            device="cuda").manual_seed(6))
+    with torch.inference_mode():
+        a, b = buf[0][:2], buf[1][:2]
+        reset_counts()
+        o = lin(a, b)
+        torch.cuda.synchronize()
+        launches["linear"] = check_path_counts("any aspect (b) linear head", per_forward)
+        final = lin.decode_pair(lin.encode(a), lin.encode(b))[2]
+        R = head6(final[:, 0])["pose"][:, :3, :3].double()
+    eye = torch.eye(3, dtype=torch.float64, device=R.device)
+    orth = (R @ R.transpose(1, 2) - eye).abs().max().item()
+    det = (torch.linalg.det(R) - 1).abs().max().item()
+    spread = (R - eye).abs().max().item()
+    finite = bool(torch.isfinite(o["pts3d"]).all() and torch.isfinite(o["conf"]).all()
+                  and torch.isfinite(R).all())
+    log(f"any aspect (b): linear head pts3d {list(o['pts3d'].shape)} finite {finite}, K1 "
+        f"launches {launches['linear']}; 6D pose head on its {R.shape[0]} pose tokens: "
+        f"|RR^T - I| {orth:.3e}, |det - 1| {det:.3e}, max |R - I| {spread:.3f} [{card}]")
+    if not finite or orth > 1e-4 or det > 1e-4:
+        raise AssertionError("head variants: non-finite output or a rotation off SO(3)")
+    del lin, o, final
+
+    # (c) the bf16 head ----------------------------------------------------
+    dpt = model.downstream_head_pts.dpt
+    with torch.inference_mode():
+        f1, f2 = model.encode(buf[0][:2]), model.encode(buf[1][:2])
+        h1, h2, final = model.decode_pair(f1, f2)
+        hooks = [torch.cat([f1, f2]).float(), h1[:, 1:], h2[:, 1:], final[:, 1:]]
+        raw32 = dpt(hooks, (h, w))
+        dpt.dtype = torch.bfloat16
+        raw16 = dpt(hooks, (h, w))
+        dpt.dtype = torch.float32
+    head_gap = normwise(raw16, raw32)
+    rel_l2 = ((raw16 - raw32).norm() / raw32.norm()).item()
+    feats = [f for chunk in (land[:8], land[8:9])
+             for f in fe.encode_batch(np.stack([x["rgb"] for x in chunk]))]
+    store = DevicePointmapStore(2 * 8 + 1, (h, w), device="cuda")
+    scrap = store.max_nodes - 1
+
+    def decode8():
+        return fe.decode_pairs_fused(feats[:8], feats[1:9], store, [scrap] * 16, [])
+
+    head_ms = {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        dpt.dtype = dtype
+        head_ms[name] = cuda_ms(decode8, warmup=3, reps=10)
+    dpt.dtype = torch.float32
+    log(f"any aspect (c): head_bf16 DPT output vs fp32 on the same hooks (2 pairs): "
+        f"normwise gap {head_gap:.3e}, relative L2 {rel_l2:.3e}; warm batch-8 "
+        f"decode_pairs_fused {head_ms['fp32']:.3f} ms with the fp32 head, "
+        f"{head_ms['bf16']:.3f} ms with head_bf16 (median of 10, CUDA events; "
+        f"bf16 / fp32 {head_ms['bf16'] / head_ms['fp32']:.3f}) [{card}]")
+    del raw16, raw32, hooks, h1, h2, final
+
+    # (d) the plain decode -------------------------------------------------
+    fused = decode8()
+    plain = fe.decode_pairs(feats[:8], feats[1:9])
+    lazy = fe.decode_pairs(feats[:8], feats[1:9], fetch=False)
+    perr = {}
+    for key in ("pose_ij", "pose_ji", "pose_conf_ij", "pose_conf_ji", "mean_conf_i",
+                "mean_conf_j", "K"):
+        perr[key] = max(normwise(plain[key], fused[key]),
+                        normwise(lazy[key].cpu(), fused[key]))
+    if lazy["depth_dev"].shape != (16, h, w) or {plain["bucket"], lazy["bucket"]} != {8}:
+        raise AssertionError("decode_pairs: unexpected dense layout or bucket")
+    log("any aspect (d): decode_pairs (fetch true / false) vs decode_pairs_fused, 8 "
+        "pairs, normwise: " + ", ".join(f"{k} {v:.3e}" for k, v in perr.items())
+        + f" (bound {ANY_ASPECT_TOL:g}) [{card}]")
+    if max(perr.values()) > ANY_ASPECT_TOL:
+        raise AssertionError(f"the plain decode disagrees with the fused one: {perr}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with profile_to(tmp) as prof:
+            fe.decode_pairs(feats[:1], feats[1:2])
+        size = os.path.getsize(prof.trace_path)
+        with open(prof.trace_path) as fh:
+            k1_in_trace = K1_KERNEL in fh.read()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"any aspect (d): profile_to wrote a {size}-byte trace of one decode_pairs; "
+        f"K1's kernel {K1_KERNEL} in it: {k1_in_trace} [{card}]")
+    if not k1_in_trace:
+        raise AssertionError("the profile_to trace does not hold K1's kernel")
+    del store, feats, fused, plain, lazy
+    torch.cuda.empty_cache()
+
+    n_kf = N_FRAMES - 1  # stride-1 keyframing starts at frame 1
+    expected = mc.enc_depth * math.ceil(n_kf / PREFETCH_CHUNK) + 2 * mc.dec_depth * (n_kf - 1)
+    trajs, walls = {}, {}
+    for name, frontend in (("fused", fe), ("plain", PlainFrontend(fe))):
+        slam = build_slam(cfg, frontend=frontend)
+        reset_counts()
+        t0 = time.perf_counter()
+        run_sequence(slam, land, cfg, progress=False)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        launches[f"run_{name}"] = check_path_counts(f"any aspect (d) {name} run", expected)
+        trajs[name] = np.stack([slam.graph.view_pose_scale(v)[0]
+                                for v in range(slam.view_num)])
+        del slam
+        torch.cuda.empty_cache()
+    gap = np.abs(trajs["plain"] - trajs["fused"]).max()
+    log(f"any aspect (d): {n_kf}-keyframe run_sequence through the plain path "
+        f"{walls['plain']:.3f} s vs the fused step {walls['fused']:.3f} s (host clock, "
+        f"final PGO included): trajectories {list(trajs['plain'].shape)}, max |plain - "
+        f"fused| {gap:.3e} (bound {PLAIN_TRAJ_TOL:g}), K1 launches {launches['run_plain']} "
+        f"each (expected {expected}) [{card}]")
+    if (trajs["plain"].shape != (n_kf, 4, 4) or not np.isfinite(trajs["plain"]).all()
+            or gap > PLAIN_TRAJ_TOL):
+        raise AssertionError("the plain-decode run's trajectory disagrees with the fused run's")
+    secs = time.perf_counter() - t_phase
+    log(f"any aspect: phase in {secs:.2f} s [{card}]")
+    return {"launches": launches["mixed"] + launches["linear"] + launches["run_plain"],
+            "head_ms": head_ms, "head_gap": head_gap, "phase_s": secs}
+
+
 KERNELS = {  # name, source, the TPU kernel it replaces
     "K1": ("flash_attn_fwd", "vista_slam_tpu_torch/csrc/flash_attn_fwd.cu",
            "vista_slam_tpu/ops/pallas/flash.py:76"),
@@ -2188,6 +2487,8 @@ def main() -> int:
     time_spd_inverses(card)
     sweep_pgo(card)
     log(f"long sequence phase (a)-(d): in {time.perf_counter() - t_long:.2f} s [{card}]")
+    torch.cuda.empty_cache()
+    any_aspect = run_any_aspect(card)
 
     bounds = {**{k: v for k, v in attn_bounds(K1_TIMED_AT, 769, 2).items() if k == "K1"},
               **{k: v for k, v in attn_bounds(K2_TIMED_AT, 769, 2).items() if k != "K1"},
@@ -2219,7 +2520,8 @@ def main() -> int:
                    "train": train["launches"][k],
                    "train_memory_knob": knob["launches"][k],
                    "trainer": trainer["launches"][k],
-                   "long_sequence": long_seq["launches"] if k == "K1" else 0}
+                   "long_sequence": long_seq["launches"] if k == "K1" else 0,
+                   "any_aspect": any_aspect["launches"] if k == "K1" else 0}
                for k in KERNELS}
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

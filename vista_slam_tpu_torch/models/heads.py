@@ -1,11 +1,13 @@
-"""Downstream heads of the STA frontend: the DPT pointmap head and the
-relative-pose head, in fp32, as in vista_slam_tpu/models/heads.py.
+"""Downstream heads of the STA frontend: the DPT and linear pointmap heads
+and the relative-pose head, as in vista_slam_tpu/models/heads.py.
 
 Module and parameter names follow the reference's torch state dict
 (reference: vista_slam/sta_model/heads/dpt_head.py:98-117,
-heads/dpt_block.py:264-450, heads/pose_head.py), which is the layout
-vista_slam_tpu/models/convert.py reads. Heads work NCHW inside; their
-outputs are NHWC like the JAX package's.
+heads/dpt_block.py:264-450, heads/linear_head.py, heads/pose_head.py),
+which is the layout vista_slam_tpu/models/convert.py reads. Heads work
+NCHW inside; their outputs are NHWC like the JAX package's. They compute
+in fp32 (the reference disables autocast around them, slam.py:164,178),
+except the DPT head's conv pyramid under ``dtype=torch.bfloat16``.
 """
 
 from __future__ import annotations
@@ -54,13 +56,20 @@ class FeatureFusionBlock(nn.Module):
 
 class DPTHead(nn.Module):
     """Dense prediction over 4 hooked token levels [B, N, C_l] (pose token
-    stripped) with dims (enc_dim, dec_dim, dec_dim, dec_dim) -> [B, H, W, 4]."""
+    stripped) with dims (enc_dim, dec_dim, dec_dim, dec_dim) -> [B, H, W, 4].
+
+    ``dtype`` is the conv pyramid's compute dtype (the JAX package's
+    ``DPTHead.dtype``, ``STAConfig.head_bf16``): with bf16 every conv,
+    resize and residual add runs in bf16 under autocast over the fp32
+    parameters; the 4-channel output is fp32 either way."""
 
     def __init__(self, dims, patch_size: int = 16,
                  layer_dims=(96, 192, 384, 768), feature_dim: int = 256,
-                 last_dim: int = 128, out_channels: int = 4):
+                 last_dim: int = 128, out_channels: int = 4,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.patch_size = patch_size
+        self.dtype = dtype
         ld = layer_dims
         self.act_postprocess = nn.ModuleList([
             nn.Sequential(nn.Conv2d(dims[0], ld[0], 1),
@@ -90,8 +99,14 @@ class DPTHead(nn.Module):
     def forward(self, hooks, img_hw) -> torch.Tensor:
         H, W = img_hw
         nh, nw = H // self.patch_size, W // self.patch_size
-        maps = [t.float().transpose(1, 2).reshape(t.shape[0], t.shape[2], nh, nw)
+        maps = [t.to(self.dtype).transpose(1, 2).reshape(t.shape[0], t.shape[2], nh, nw)
                 for t in hooks]
+        if self.dtype == torch.float32:
+            return self._pyramid(maps, H, W)
+        with torch.autocast(maps[0].device.type, dtype=self.dtype):
+            return self._pyramid(maps, H, W).float()
+
+    def _pyramid(self, maps, H, W) -> torch.Tensor:
         levels = [self.act_postprocess[i](m) for i, m in enumerate(maps)]
         rn = [getattr(self.scratch, f"layer{i + 1}_rn")(x) for i, x in enumerate(levels)]
         s = self.scratch
@@ -102,6 +117,26 @@ class DPTHead(nn.Module):
         x = _resize(self.head[0](p1), (H, W))
         x = self.head[4](F.relu(self.head[2](x)))
         return x.permute(0, 2, 3, 1)  # [B, H, W, out_channels]
+
+
+class LinearPtsHead(nn.Module):
+    """Per-token Linear to out_channels * p * p, then depth-to-space to
+    [B, H, W, out_channels] (reference: heads/linear_head.py:30-41). The
+    projection's outputs are ordered (channel, row, column) for
+    ``pixel_shuffle``, as in the reference; the JAX package orders its Dense
+    kernel (row, column, channel), which models/convert.py permutes."""
+
+    def __init__(self, dim: int, patch_size: int = 16, out_channels: int = 4):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Linear(dim, out_channels * patch_size * patch_size)
+
+    def forward(self, hooks, img_hw) -> torch.Tensor:
+        H, W = img_hw
+        p = self.patch_size
+        x = self.proj(hooks[-1].float())  # [B, N, C*p*p]
+        x = x.transpose(1, 2).reshape(x.shape[0], -1, H // p, W // p)
+        return F.pixel_shuffle(x, p).permute(0, 2, 3, 1)
 
 
 def postprocess_pts3d(raw: torch.Tensor, conf_offset: float = 1.0):
@@ -143,43 +178,62 @@ def svd_orthogonalize_stable(m: torch.Tensor, n_iter: int = 100) -> torch.Tensor
     return torch.cat([o[..., :, :-1], o[..., :, -1:] * sign[..., None, None]], dim=-1)
 
 
+def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:
+    """Zhou et al.'s 6D -> SO(3) by Gram-Schmidt; the basis vectors are the
+    rows (reference: heads/pose_head.py:72-92)."""
+    a1, a2 = d6[..., :3], d6[..., 3:]
+    b1 = a1 / torch.clamp_min(torch.linalg.vector_norm(a1, dim=-1, keepdim=True), 1e-8)
+    b2 = a2 - (b1 * a2).sum(-1, keepdim=True) * b1
+    b2 = b2 / torch.clamp_min(torch.linalg.vector_norm(b2, dim=-1, keepdim=True), 1e-8)
+    b3 = torch.linalg.cross(b1, b2, dim=-1)
+    return torch.stack([b1, b2, b3], dim=-2)
+
+
 # fc_rot bias at init: a sheared near-identity with distinct singular values
 # after row normalisation (an exact identity gives repeated singular values,
 # where the SVD derivative blows up) — see vista_slam_tpu/models/heads.py
 _ROT9_INIT_BIAS = (1.0, 0.1, -0.05, 0.05, 1.0, 0.15, -0.1, 0.05, 1.0)
+_ROT6_INIT_BIAS = (1.0, 0.0, 0.0, 0.0, 1.0, 0.0)  # the identity's two rows
+_ROT_WIDTH = {"9D": 9, "9D_stable": 9, "6D": 6}
 
 
 class PoseHead(nn.Module):
     """Relative pose from the decoder's pose token: 3-layer ReLU MLP ->
-    translation, 9D rotation ('9D' SVD or '9D_stable' Newton projection),
-    sigmoid confidence (reference: heads/pose_head.py:7-119)."""
+    translation, rotation ('9D' SVD, '9D_stable' Newton projection or '6D'
+    Gram-Schmidt), sigmoid confidence (reference: heads/pose_head.py:7-119)."""
 
     def __init__(self, dim: int, hidden: int = 512, rot_representation: str = "9D"):
         super().__init__()
-        if rot_representation not in ("9D", "9D_stable"):
-            raise ValueError(f"rot_representation {rot_representation!r}: the port "
-                             "has '9D' and '9D_stable'")
+        if rot_representation not in _ROT_WIDTH:
+            raise ValueError(f"rot_representation {rot_representation!r}: one of "
+                             f"{sorted(_ROT_WIDTH)}")
         self.rot_representation = rot_representation
         self.mlp = nn.Sequential(nn.Linear(dim, hidden), nn.ReLU(),
                                  nn.Linear(hidden, hidden), nn.ReLU(),
                                  nn.Linear(hidden, hidden), nn.ReLU())
         self.fc_t = nn.Linear(hidden, 3)
-        self.fc_rot = nn.Linear(hidden, 9)
+        self.fc_rot = nn.Linear(hidden, _ROT_WIDTH[rot_representation])
         self.fc_conf = nn.Sequential(nn.Linear(hidden, 1), nn.Sigmoid())
 
     @torch.no_grad()
     def reset_rotation_(self) -> None:
-        """The zero-kernel / sheared-bias init of the rotation regressor."""
+        """The zero-kernel init of the rotation regressor, its bias the
+        identity (6D) or a sheared near-identity (9D)."""
         self.fc_rot.weight.zero_()
-        self.fc_rot.bias.copy_(torch.tensor(_ROT9_INIT_BIAS))
+        bias = _ROT6_INIT_BIAS if self.rot_representation == "6D" else _ROT9_INIT_BIAS
+        self.fc_rot.bias.copy_(torch.tensor(bias))
 
     def forward(self, token: torch.Tensor) -> dict:
         x = self.mlp(token.float())
         t = self.fc_t(x)
         conf = self.fc_conf(x)[..., 0]
-        r9 = self.fc_rot(x)
-        R = (svd_orthogonalize_stable(r9) if self.rot_representation == "9D_stable"
-             else svd_orthogonalize(r9))
+        r = self.fc_rot(x)
+        if self.rot_representation == "6D":
+            R = rotation_6d_to_matrix(r)
+        elif self.rot_representation == "9D_stable":
+            R = svd_orthogonalize_stable(r)
+        else:
+            R = svd_orthogonalize(r)
         b = token.shape[0]
         pose = torch.zeros((b, 4, 4), dtype=torch.float32, device=token.device)
         pose[:, :3, :3] = R

@@ -6,10 +6,16 @@ vista_slam/sta_model/sta_model.py:26-291):
   * symmetric cross-attention decoder over two views, both directions
     stacked on the batch axis, with the streams swapped before every layer
     and a learned pose token at RoPE position (-1, -1);
-  * DPT pointmap head over hooks [enc, dec mid, dec mid, dec final] and a
-    pose head over the final pose token.
+  * DPT pointmap head over hooks [enc, dec mid, dec mid, dec final] (or the
+    linear head over the final state, ``head_type='linear'``) and a pose
+    head over the final pose token;
+  * mixed-aspect batches (``mixed_forward``): portrait samples stored
+    transposed in the landscape buffer, with per-sample patch orientation,
+    RoPE tables and head orientation (the reference's ManyAR patch embed and
+    transpose_to_landscape, patch_embed.py:31-68, utils/misc.py:36-78).
 Mixed precision as in the JAX package: trunk matmuls in ``compute_dtype``
-(bf16 by default), LayerNorm and softmax in fp32, heads in fp32. Trunk
+(bf16 by default), LayerNorm and softmax in fp32, heads in fp32 (the DPT
+conv pyramid in bf16 with ``head_bf16``). Trunk
 weights are held in ``param_dtype`` (by default the compute dtype, for
 inference; fp32 for training, cast to the compute dtype in every matmul as
 the JAX package's Dense layers cast its fp32 params). Parameter names are
@@ -32,7 +38,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.attention import mha
 from ..ops.rope2d import apply_rope2d, rope2d_tables
-from .heads import DPTHead, PoseHead, postprocess_pts3d
+from .heads import DPTHead, LinearPtsHead, PoseHead, postprocess_pts3d
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +53,7 @@ class STAConfig:
     dec_heads: int = 12
     mlp_ratio: int = 4
     rope_base: float = 100.0
+    head_type: str = "dpt"  # 'dpt' | 'linear'
     conf_offset: float = 1.0
     compute_dtype: torch.dtype = torch.bfloat16
     use_flash: bool | None = None  # None = by sequence length (ops/attention.mha)
@@ -59,6 +66,8 @@ class STAConfig:
     param_dtype: torch.dtype | None = None
     # recompute each block's activations in the backward (train memory)
     remat: bool = False
+    # the DPT head's conv pyramid in bf16 over fp32 parameters (fp32 output)
+    head_bf16: bool = False
 
     @property
     def grid(self) -> tuple[int, int]:
@@ -185,10 +194,13 @@ class DecoderBlock(nn.Module):
         self.norm3 = LayerNorm32(dim)
         self.mlp = Mlp(dim, dim * mlp_ratio, dtype, gelu_approx, param_dtype)
 
-    def forward(self, x, y, rope):
+    def forward(self, x, y, rope, rope_y=None):
+        """``rope`` rotates the query stream x, ``rope_y`` (default: rope) the
+        memory stream y; per-sample tables are [B, 1, N, D]."""
         dt = self.dtype
         x = x + self.attn(self.norm1(x).to(dt), rope)
-        x = x + self.cross_attn(self.norm2(x).to(dt), self.norm_y(y).to(dt), rope, rope)
+        x = x + self.cross_attn(self.norm2(x).to(dt), self.norm_y(y).to(dt), rope,
+                                rope if rope_y is None else rope_y)
         return x + self.mlp(self.norm3(x).to(dt))
 
 
@@ -221,6 +233,8 @@ class STA(nn.Module):
       pair_heads(f1, f2, ...)     -> pointmaps / confidences / poses
       decode_and_heads(f1, f2)    -> both of the above
       forward(img1, img2)         -> full two-view forward
+      mixed_forward(img1, img2, portrait1, portrait2)
+                                  -> the same over a mixed-aspect batch
       train_forward(main, supps)  -> the training forward over S supports
     """
 
@@ -240,9 +254,15 @@ class STA(nn.Module):
             for _ in range(c.dec_depth)])
         self.dec_norm = LayerNorm32(c.dec_dim)
         self.init_pose_token = nn.Parameter(torch.zeros(1, 1, c.dec_dim))
-        self.downstream_head_pts = nn.Module()
-        self.downstream_head_pts.dpt = DPTHead(
-            (c.enc_dim, c.dec_dim, c.dec_dim, c.dec_dim), patch_size=c.patch_size)
+        if c.head_type == "dpt":
+            self.downstream_head_pts = nn.Module()
+            self.downstream_head_pts.dpt = DPTHead(
+                (c.enc_dim, c.dec_dim, c.dec_dim, c.dec_dim), patch_size=c.patch_size,
+                dtype=torch.bfloat16 if c.head_bf16 else torch.float32)
+        elif c.head_type == "linear":
+            self.downstream_head_pts = LinearPtsHead(c.dec_dim, c.patch_size)
+        else:
+            raise ValueError(f"head_type {c.head_type!r}: 'dpt' or 'linear'")
         self.head_pose_s = PoseHead(c.dec_dim)
 
     @torch.no_grad()
@@ -296,8 +316,14 @@ class STA(nn.Module):
         are direction 1 (view-i queries), rows [B:] direction 2. ``final``
         is layernormed."""
         c = self.cfg
-        B = f1.shape[0]
         rope = self._rope(c.dec_dim // c.dec_heads, 1, grid or c.grid, f1.device)
+        return self._decode_pair_impl(f1, f2, rope, rope)
+
+    def _decode_pair_impl(self, f1, f2, rope_x, rope_y):
+        """The decoder body with explicit (possibly per-sample) RoPE tables
+        for the query stream [f1; f2] and the memory stream [f2; f1]."""
+        c = self.cfg
+        B = f1.shape[0]
         x = self.decoder_embed(torch.cat([f1, f2], dim=0).to(c.compute_dtype))
         pose_tok = self.init_pose_token.to(c.compute_dtype).expand(2 * B, 1, c.dec_dim)
         x = torch.cat([pose_tok, x], dim=1)
@@ -305,7 +331,7 @@ class STA(nn.Module):
         mids = {}
         for i, blk in enumerate(self.dec_block):
             y = torch.cat([x[B:], x[:B]], dim=0)  # swap streams
-            x = self._block(blk, x, y, rope)
+            x = self._block(blk, x, y, rope_x, rope_y)
             if i + 1 in hook_after:
                 mids[i + 1] = x.float()
         return mids[hook_after[0]], mids[hook_after[1]], self.dec_norm(x)
@@ -317,11 +343,17 @@ class STA(nn.Module):
         gh, gw = grid or c.grid
         enc = torch.cat([f1, f2], dim=0).float()
         hooks = [enc, h_mid1[:, 1:], h_mid2[:, 1:], final[:, 1:]]
-        raw = self.downstream_head_pts.dpt(hooks, (gh * c.patch_size, gw * c.patch_size))
+        raw = self.head_pts(hooks, (gh * c.patch_size, gw * c.patch_size))
         pts3d, conf = postprocess_pts3d(raw, c.conf_offset)
         pose = self.head_pose_s(final[:, 0])
         return {"pts3d": pts3d, "conf": conf, "pose": pose["pose"],
                 "pose_conf": pose["conf"]}
+
+    def head_pts(self, hooks, img_hw) -> torch.Tensor:
+        """The configured pointmap head: hooks -> raw [B, H, W, 4] fp32."""
+        if self.cfg.head_type == "dpt":
+            return self.downstream_head_pts.dpt(hooks, img_hw)
+        return self.downstream_head_pts(hooks, img_hw)
 
     def decode_and_heads(self, f1, f2, grid=None) -> dict:
         return self.pair_heads(f1, f2, *self.decode_pair(f1, f2, grid), grid)
@@ -345,3 +377,101 @@ class STA(nn.Module):
         f_main = self.encode(main_img)
         f_supp = self.encode(support_imgs.reshape((S * B,) + tuple(support_imgs.shape[2:])))
         return self.decode_and_heads(f_main.repeat(S, 1, 1), f_supp, grid)
+
+    # -- mixed-aspect (ManyAR) path -----------------------------------------
+    def _mixed_rope(self, gh: int, gw: int, dim_head: int, n_special: int,
+                    portrait_mask: torch.Tensor):
+        """Per-sample RoPE tables [B, 1, N, D]: portrait samples are stored
+        transposed in the landscape buffer, so their token positions index
+        a (gw, gh) grid (reference: sta_model/patch_embed.py:40-68)."""
+        dev = portrait_mask.device
+        tl = self._rope(dim_head, n_special, (gh, gw), dev)
+        tp = self._rope(dim_head, n_special, (gw, gh), dev)
+        m = portrait_mask.reshape(-1, 1, 1, 1)
+        return (torch.where(m, tp[0], tl[0]), torch.where(m, tp[1], tl[1]))
+
+    def encode_mixed(self, img: torch.Tensor, portrait_mask: torch.Tensor) -> torch.Tensor:
+        """Encode a batch mixing portrait and landscape samples (the
+        reference's ManyAR_PatchEmbed, patch_embed.py:31-68). img [B, H, W, 3]
+        is the landscape buffer (W >= H); portrait samples are stored
+        spatially transposed and flagged in portrait_mask [B]. The patch
+        projection runs on both orientations (the kernel is not transpose-
+        symmetric) and each sample takes its own; so do its RoPE positions."""
+        c = self.cfg
+        img = img.to(c.compute_dtype)
+        xl = self.patch_embed(img)
+        xp = self.patch_embed(img.transpose(1, 2))
+        b, gh, gw, d = xl.shape
+        x = torch.where(portrait_mask.reshape(-1, 1, 1),
+                        xp.reshape(b, gh * gw, d), xl.reshape(b, gh * gw, d))
+        rope = self._mixed_rope(gh, gw, c.enc_dim // c.enc_heads, 0, portrait_mask)
+        for blk in self.enc_blocks:
+            x = self._block(blk, x, rope)
+        return x.float()
+
+    def mixed_forward(self, img1: torch.Tensor, img2: torch.Tensor,
+                      portrait1: torch.Tensor, portrait2: torch.Tensor) -> dict:
+        """The two-view forward over a mixed-aspect batch. Dense outputs stay
+        in the landscape buffer layout (a portrait sample's maps transposed
+        from its true orientation), the reference's transpose_to_landscape
+        contract (utils/misc.py:36-78); consumers un-transpose by the
+        portrait mask. Outputs as ``forward``'s, leading axis [dir1; dir2]."""
+        c = self.cfg
+        p = c.patch_size
+        gh, gw = img1.shape[1] // p, img1.shape[2] // p
+        f1 = self.encode_mixed(img1, portrait1)
+        f2 = self.encode_mixed(img2, portrait2)
+        hd = c.dec_dim // c.dec_heads
+        mx = torch.cat([portrait1, portrait2])  # query stream [f1; f2]
+        my = torch.cat([portrait2, portrait1])  # memory stream [f2; f1]
+        h_mid1, h_mid2, final = self._decode_pair_impl(
+            f1, f2, self._mixed_rope(gh, gw, hd, 1, mx), self._mixed_rope(gh, gw, hd, 1, my))
+        hooks = [torch.cat([f1, f2], dim=0).float(), h_mid1[:, 1:], h_mid2[:, 1:],
+                 final[:, 1:]]
+        # the pointmap head once per aspect subset, each in its true
+        # orientation, a portrait subset's maps transposed into the buffer
+        # (the reference's utils/misc.py:64-66)
+        raw = torch.empty((mx.shape[0], gh * p, gw * p, 4), device=final.device)
+        for portrait, hw in ((False, (gh * p, gw * p)), (True, (gw * p, gh * p))):
+            rows = torch.nonzero(mx == portrait).squeeze(1)
+            if rows.numel():
+                r = self.head_pts([t[rows] for t in hooks], hw)
+                raw[rows] = r.transpose(1, 2) if portrait else r
+        pts3d, conf = postprocess_pts3d(raw, c.conf_offset)
+        pose = self.head_pose_s(final[:, 0])
+        return {"pts3d": pts3d, "conf": conf, "pose": pose["pose"],
+                "pose_conf": pose["conf"]}
+
+
+def predict_pair_any_aspect(model: STA, img1: torch.Tensor, img2: torch.Tensor) -> dict:
+    """A pair batch of one aspect: portrait inputs are transposed into
+    landscape, predicted, and their dense outputs transposed back (the
+    reference's transpose_to_landscape, utils/misc.py:36-78). For batches
+    that mix aspects use predict_pair_mixed_aspect."""
+    portrait = img1.shape[1] > img1.shape[2]
+    if portrait:
+        img1, img2 = img1.transpose(1, 2), img2.transpose(1, 2)
+    out = model(img1, img2)
+    if portrait:
+        out = dict(out, pts3d=out["pts3d"].transpose(1, 2),
+                   conf=out["conf"].transpose(1, 2))
+    return out
+
+
+def predict_pair_mixed_aspect(model: STA, img1: torch.Tensor, img2: torch.Tensor,
+                              true_shape1, true_shape2) -> dict:
+    """Mixed portrait / landscape batches (the reference's ManyAR
+    capability). img1/img2 [B, H, W, 3] with W >= H hold every sample in the
+    landscape buffer, portrait ones transposed; true_shape* [B, 2] give each
+    sample's (h, w). The dense maps come back in buffer layout with
+    ``portrait_mask`` [2B] for consumers to un-transpose per sample."""
+    ts1 = torch.as_tensor(true_shape1, device=img1.device)
+    ts2 = torch.as_tensor(true_shape2, device=img1.device)
+    p1, p2 = ts1[:, 0] > ts1[:, 1], ts2[:, 0] > ts2[:, 1]
+    out = dict(model.mixed_forward(img1, img2, p1, p2))
+    out["portrait_mask"] = torch.cat([p1, p2])
+    return out
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

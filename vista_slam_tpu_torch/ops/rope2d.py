@@ -61,8 +61,9 @@ def rope2d_tables(n_h: int, n_w: int, dim_head: int, base: float = 100.0,
 
 def apply_rope2d(tokens: torch.Tensor, cos: torch.Tensor,
                  sin: torch.Tensor) -> torch.Tensor:
-    """Rotate tokens [..., N, D] with tables [N, D]; within each axis half
-    h = (h1, h2), rotate_half(h) = (-h2, h1) (reference:
+    """Rotate tokens [..., N, D] with tables [N, D], or tokens [B, H, N, D]
+    with per-sample tables [B, 1, N, D] (mixed-aspect batches); within each
+    axis half h = (h1, h2), rotate_half(h) = (-h2, h1) (reference:
     pos_embed.py:122-125,149-167). Computed in the tokens' dtype."""
     D = tokens.shape[-1]
     d = D // 2

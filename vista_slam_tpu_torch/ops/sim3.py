@@ -25,6 +25,12 @@ _SMALL = 1e-6  # switch point to Taylor expansions
 
 # -- quaternions (x, y, z, w) -------------------------------------------------
 
+def quat_identity(shape=(), dtype=torch.float32, device="cpu") -> torch.Tensor:
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
+    q[..., 3] = 1.0
+    return q
+
+
 def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ax, ay, az, aw = a.unbind(-1)
     bx, by, bz, bw = b.unbind(-1)
@@ -130,6 +136,18 @@ def hat(phi: torch.Tensor) -> torch.Tensor:
 
 # -- Sim(3) group ops ---------------------------------------------------------
 
+def identity(shape=(), dtype=torch.float32, device="cpu") -> torch.Tensor:
+    g = torch.zeros(tuple(shape) + (8,), dtype=dtype, device=device)
+    g[..., 6] = 1.0
+    g[..., 7] = 1.0
+    return g
+
+
+def make(t: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """(t [..., 3], q [..., 4], s [...] or [..., 1]) -> g [..., 8]."""
+    return torch.cat([t, q, s[..., None] if s.dim() == t.dim() - 1 else s], dim=-1)
+
+
 def trans(g):
     return g[..., 0:3]
 
@@ -155,6 +173,30 @@ def inv(g: torch.Tensor) -> torch.Tensor:
     s_inv = 1.0 / torch.clamp_min(scale(g), _EPS)
     t = -s_inv * quat_rotate(qc, trans(g))
     return torch.cat([t, qc, s_inv], dim=-1)
+
+
+def act(g: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply g to points pts[..., 3]: s R x + t."""
+    return scale(g) * quat_rotate(quat(g), pts) + trans(g)
+
+
+def _rt_to_mat44(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    m = torch.zeros(R.shape[:-2] + (4, 4), dtype=R.dtype, device=R.device)
+    m[..., :3, :3] = R
+    m[..., :3, 3] = t
+    m[..., 3, 3] = 1.0
+    return m
+
+
+def to_matrix(g: torch.Tensor) -> torch.Tensor:
+    """4x4 homogeneous matrix with the scaled rotation block [sR | t]."""
+    return _rt_to_mat44(quat_to_matrix(quat(g)) * scale(g)[..., None], trans(g))
+
+
+def to_pose_matrix(g: torch.Tensor) -> torch.Tensor:
+    """4x4 rigid pose [R | t] with the scale factored out (the reference
+    exports camera poses so and scales the depth map, slam.py:304-315)."""
+    return _rt_to_mat44(quat_to_matrix(quat(g)), trans(g))
 
 
 def from_rt(R: torch.Tensor, t: torch.Tensor, s=1.0) -> torch.Tensor:
@@ -264,3 +306,8 @@ def retract(g: torch.Tensor, xi: torch.Tensor) -> torch.Tensor:
 
 def normalize(g: torch.Tensor) -> torch.Tensor:
     return torch.cat([trans(g), quat_normalize(quat(g)), g[..., 7:8]], dim=-1)
+
+
+def se3_from_matrix(m: torch.Tensor) -> torch.Tensor:
+    """A pose-head 4x4 output as a Sim(3) element with scale 1."""
+    return from_matrix(m, 1.0)

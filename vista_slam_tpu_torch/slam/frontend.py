@@ -8,7 +8,10 @@ time, vista_slam/slam.py:263-277). Pair batches are padded to the buckets
 step computes pointmaps, confidences, relative poses, shared intrinsics,
 mean confidences, the in-place fp16 store scatter and the per-node scale
 reductions on the device, and brings the small outputs back as one packed
-fp32 vector: one device-to-host copy per keyframe.
+fp32 vector: one device-to-host copy per keyframe. ``decode_pairs`` is the
+plain step: decode and heads only, the dense maps left on the device for
+the caller to store (OnlineSLAM's path for frontends without the fused
+step), the small outputs fetched in one copy or left on the device.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from ..models.sta import STA, STAConfig
 from ..utils.geometry import estimate_intrinsics_shared
+from .host_math import from_matrix as sim3_from_matrix_np
 from .pointmap_store import DevicePointmapStore, pair_scales
 
 _BUCKETS = (1, 2, 4, 8)
@@ -44,10 +48,21 @@ _PAIR_FLOATS = sum(w for _, w in _HOST_SPEC)  # 45
 
 def _pack_host(host: dict, b: int) -> torch.Tensor:
     """[b*45 + 2*j_max] fp32: the per-pair block, then the scale and
-    scale-confidence job rows. Inverse of _unpack_host."""
-    pair = torch.cat([host[k].reshape(b, w).float() for k, w in _HOST_SPEC], dim=1)
-    return torch.cat([pair.reshape(-1), host["scale"].float(),
-                      host["scale_conf"].float()])
+    scale-confidence job rows where ``host`` has them. Inverse of
+    _unpack_host."""
+    pair = torch.cat([torch.as_tensor(host[k]).reshape(b, w).float()
+                      for k, w in _HOST_SPEC], dim=1)
+    rows = [torch.as_tensor(host[k]).float() for k in ("scale", "scale_conf") if k in host]
+    return torch.cat([pair.reshape(-1)] + rows)
+
+
+def fetch_host(host: dict, b: int, scales=None) -> dict:
+    """The per-pair outputs of ``b`` pairs and the (scale, scale_conf) job
+    rows of ``scales`` (none: empty), brought to the host as numpy in one
+    device-to-host copy."""
+    if scales is not None:
+        host = dict(host, scale=scales[0], scale_conf=scales[1])
+    return _unpack_host(_pack_host(host, b).cpu().numpy(), b)
 
 
 def _unpack_host(flat: np.ndarray, b: int) -> dict:
@@ -104,10 +119,11 @@ class FrontendEngine:
         return out
 
     # ------------------------------------------------------------------
-    def _decode_store_scales(self, f1, f2, store: DevicePointmapStore, node_idx,
-                             job_new, job_first) -> torch.Tensor:
-        """Decode + heads + intrinsics + store scatter + scale reductions;
-        returns the packed host vector (still on the device)."""
+    def _decode(self, f1, f2) -> tuple[dict, torch.Tensor, torch.Tensor]:
+        """Decode + heads + shared intrinsics of a padded pair batch: the
+        per-pair host outputs (device tensors) and the fp16 dense depth and
+        confidence [2b, H, W], rows [dir-i of every pair; dir-j of every
+        pair], clipped into the fp16 range (unbounded exp heads)."""
         out = self.model.decode_and_heads(f1, f2)
         b = f1.shape[0]
         pts, conf = out["pts3d"], out["conf"]
@@ -121,14 +137,21 @@ class FrontendEngine:
             "mean_conf_i": conf[:b].mean((1, 2)), "mean_conf_j": conf[b:].mean((1, 2)),
             "K": K,
         }
+        depth = torch.clamp(pts[..., 2], -_F16_MAX, _F16_MAX).to(torch.float16)
+        return host, depth, torch.clamp(conf, 0.0, _F16_MAX).to(torch.float16)
+
+    def _decode_store_scales(self, f1, f2, store: DevicePointmapStore, node_idx,
+                             job_new, job_first) -> torch.Tensor:
+        """Decode + heads + intrinsics + store scatter + scale reductions;
+        returns the packed host vector (still on the device)."""
+        host, depth, conf16 = self._decode(f1, f2)
+        b = f1.shape[0]
         # rows in pair order (dir-i of pair k, then its dir-j), written in
         # place into the store
         perm = torch.stack([torch.arange(b), b + torch.arange(b)], 1).reshape(-1)
         perm = perm.to(self.device)
-        depth = torch.clamp(pts[..., 2], -_F16_MAX, _F16_MAX).to(store.depth.dtype)
-        conf16 = torch.clamp(conf, 0.0, _F16_MAX).to(store.conf.dtype)
-        store.depth.index_copy_(0, node_idx, depth[perm])
-        store.conf.index_copy_(0, node_idx, conf16[perm])
+        store.depth.index_copy_(0, node_idx, depth[perm].to(store.depth.dtype))
+        store.conf.index_copy_(0, node_idx, conf16[perm].to(store.conf.dtype))
         host["scale"], host["scale_conf"] = pair_scales(store.depth, store.conf,
                                                         job_new, job_first)
         return _pack_host(host, b)
@@ -156,6 +179,30 @@ class FrontendEngine:
 
     def _pad_feats(self, feats: list, b: int) -> torch.Tensor:
         return torch.cat(feats + [feats[-1]] * (b - len(feats)), dim=0).float()
+
+    @torch.inference_mode()
+    def decode_pairs(self, feats_i: list, feats_j: list, fetch: bool = True) -> dict:
+        """Decode len(feats_i) pairs in one bucketed forward.
+
+        Returns the per-pair outputs (poses, confidences, intrinsics)
+        trimmed to the true pair count, plus 'depth_dev' / 'conf_dev' fp16
+        [2*bucket, H, W] on the device (row k = direction i of pair k, row
+        bucket+k = its direction j) and 'bucket'. With fetch=True the
+        per-pair outputs come to the host as numpy in one copy; with
+        fetch=False they stay on the device and nothing waits for it."""
+        n = len(feats_i)
+        t0 = time.time()
+        b = _bucket(n)
+        host, depth, conf = self._decode(self._pad_feats(feats_i, b),
+                                         self._pad_feats(feats_j, b))
+        if fetch:
+            host = fetch_host(host, b)
+            del host["scale"], host["scale_conf"]
+            self.fetch_count += 1
+        out = {k: v[:n] for k, v in host.items()}
+        out.update(depth_dev=depth, conf_dev=conf, bucket=b)
+        self.time_decode += time.time() - t0
+        return out
 
     @torch.inference_mode()
     def decode_pairs_fused(self, feats_i, feats_j, store, node_idxs, jobs) -> dict:
@@ -194,3 +241,9 @@ class FrontendEngine:
         out = self._fetch_packed(packed, n, b, len(jobs))
         self.time_decode += time.time() - t0
         return out, feat
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def pose_to_sim3(pose_4x4: np.ndarray, scale: float = 1.0) -> np.ndarray:
+        """A pose-head 4x4 output as a host Sim(3) vector [8] with ``scale``."""
+        return sim3_from_matrix_np(pose_4x4, scale)

@@ -4,9 +4,10 @@
 (vista_slam_tpu/slam/online_slam.py: keyframe ingest, batched edge
 regression, Sim(3) pose graph, loop closure, windowed PGO; reference:
 vista_slam/slam.py:20-447), copied with the parts that touch jax replaced:
-the pointmap store is the torch one, every edge batch goes through the
-frontend's fused decode (one device program and one fetch per batch), the
-edge-batch replay reads the frontend's already-fetched host outputs, PGO is
+the pointmap store is the torch one, an edge batch goes through the
+frontend's fused decode (one device step and one fetch per batch) or, for a
+frontend without it, through its plain ``decode_pairs(fetch=False)``, the
+store write and the scale reductions, then one fetch; PGO is
 the torch solver, and the OpenCV flow tracker is built only when flow
 keyframing first asks for it (stride keyframing runs on hosts without
 OpenCV). save_state / load_state write and read the JAX package's state
@@ -24,6 +25,7 @@ import torch
 from ..utils.logging import Channel, log
 from . import host_math as hm
 from .flow_tracker import FlowTracker
+from .frontend import fetch_host
 from .pgo import PGOConfig, optimize_pose_graph
 from .pointmap_store import DevicePointmapStore
 from .pose_graph import ID_POSE_CONF, PoseGraph
@@ -215,11 +217,12 @@ class OnlineSLAM:
         return False
 
     # ------------------------------------------------------------------
-    def _store(self, hw) -> DevicePointmapStore:
+    def _store(self, hw, device=None) -> DevicePointmapStore:
         if self.pointmaps is None:
             # +1 scrap row: padded pairs of the fused step scatter there
-            self.pointmaps = DevicePointmapStore(self.graph.max_nodes + 1, tuple(hw),
-                                                 device=self.frontend.device)
+            self.pointmaps = DevicePointmapStore(
+                self.graph.max_nodes + 1, tuple(hw),
+                device=self.frontend.device if device is None else device)
         return self.pointmaps
 
     def _plan_edge_batch(self, i: int, js: list[int]):
@@ -247,34 +250,52 @@ class OnlineSLAM:
         return spec_ni, spec_nj, node_idxs, jobs, prior_first_i
 
     def _dispatch_edge_batch(self, i: int, js: list[int], img=None):
-        """Dispatch all device work for an edge batch without synchronizing:
-        decode + store scatter + scale reductions run as one program, and
-        with ``img`` given frame i's encoder forward rides the same call;
-        its token cache is filled into ``enc_feats[i]`` here."""
+        """Dispatch all device work for an edge batch without synchronizing.
+
+        Fused path (the port's FrontendEngine): decode + store scatter +
+        scale reductions in one step; with ``img`` given, frame i's encoder
+        forward rides the same call and its token cache is filled into
+        ``enc_feats[i]`` here. Plain path (a frontend without
+        decode_pairs_fused): the same dataflow as three steps, decode with
+        the outputs left on the device, store write, scale reductions."""
         plan = self._plan_edge_batch(i, js)
         _, _, node_idxs, jobs, _ = plan
         f_j = [self.enc_feats[j] for j in js]
-        store = self._store(self.frontend.cfg.img_size)
         if img is not None:
+            store = self._store(self.frontend.cfg.img_size)
             host, feat = self.frontend.encode_decode_pairs_fused(
                 img, f_j, store, node_idxs, jobs)
             self.enc_feats[i] = feat
             return plan, ("fused", host)
         f_i = [self.enc_feats[i]] * len(js)
-        host = self.frontend.decode_pairs_fused(f_i, f_j, store, node_idxs, jobs)
-        return plan, ("fused", host)
+        if hasattr(self.frontend, "decode_pairs_fused"):
+            store = self._store(self.frontend.cfg.img_size)
+            host = self.frontend.decode_pairs_fused(f_i, f_j, store, node_idxs, jobs)
+            return plan, ("fused", host)
+
+        outs = self.frontend.decode_pairs(f_i, f_j, fetch=False)
+        b = outs["bucket"]
+        dense_dev = torch.as_tensor(outs["depth_dev"]).device
+        store = self._store(outs["depth_dev"].shape[1:], dense_dev)
+        rows = torch.as_tensor([r for k in range(len(js)) for r in (k, b + k)],
+                               device=dense_dev)
+        store.write_batch(node_idxs, outs["depth_dev"][rows], outs["conf_dev"][rows])
+        sc_dev = (store.scales_batch_async([a for a, _ in jobs], [f for _, f in jobs])
+                  if jobs else None)
+        return plan, ("plain", outs, sc_dev)
 
     def _finish_edge_batch(self, i: int, js: list[int], pending):
-        """Replay the graph updates of one fetched edge batch in the
-        reference's per-edge order (slam.py:153-241)."""
+        """One synchronisation (the fused path's was the engine's), then the
+        graph updates in the reference's per-edge order (slam.py:153-241)."""
         plan, payload = pending
         spec_ni, spec_nj, node_idxs, jobs, prior_first_i = plan
-        if payload[0] != "fused":
-            raise TypeError("the port's OnlineSLAM needs a frontend with "
-                            "decode_pairs_fused")
         g = self.graph
         store = self.pointmaps
-        host = payload[1]  # already fetched and trimmed by the engine
+        if payload[0] == "fused":
+            host = payload[1]  # already fetched and trimmed by the engine
+        else:
+            # the plain path's one device->host copy
+            host = fetch_host(payload[1], len(js), payload[2])
         scale_of = {(n, f): (float(s), float(c))
                     for (n, f), s, c in zip(jobs, host["scale"], host["scale_conf"])}
 

@@ -1,11 +1,13 @@
-"""Camera geometry, as in vista_slam_tpu/utils/geometry.py: intrinsics from
-pointmaps (reference: vista_slam/utils/slam_utils.py:8-61) and the
-closed-form rigid inverse the training losses use."""
+"""Camera geometry, as in vista_slam_tpu/utils/geometry.py (reference:
+vista_slam/utils/slam_utils.py:8-190): intrinsics from pointmaps, depth <->
+pointcloud conversion, relative scale, and the closed-form rigid inverse."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..ops.linalg import adjugate_inv3
 from .image_ops import pixel_grid
 
 
@@ -50,3 +52,49 @@ def estimate_intrinsics_shared(pts3d: torch.Tensor, conf: torch.Tensor) -> torch
     K[..., 1, 2] = cy
     K[..., 2, 2] = 1.0
     return K
+
+
+def estimate_intrinsics_batched(pts3d: torch.Tensor, conf: torch.Tensor) -> torch.Tensor:
+    """Per-image focal estimate: [B,H,W,3], [B,H,W] -> K [B,3,3]
+    (reference: slam_utils.py:63-79): the shared fit over sets of one view."""
+    return estimate_intrinsics_shared(pts3d[:, None], conf[:, None])
+
+
+def _pixel_rays(K: torch.Tensor, n: int, h: int, w: int, dtype) -> torch.Tensor:
+    """Per-pixel K^-1 rays [n, H, W, 3]; K is [3,3] shared or [n,3,3]."""
+    pix = pixel_grid(h, w, dtype, K.device).reshape(-1, 3)  # [HW, 3]
+    if K.dim() == 2:
+        return (pix @ adjugate_inv3(K).T).reshape(1, h, w, 3).expand(n, h, w, 3)
+    return torch.einsum("nij,pj->npi", adjugate_inv3(K), pix).reshape(n, h, w, 3)
+
+
+def depth_to_pointcloud(depth: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Unproject depth maps: [N,H,W] + K ([3,3] or [N,3,3]) -> [N,H,W,3]
+    (reference: slam_utils.py:82-121)."""
+    N, H, W = depth.shape
+    return _pixel_rays(K, N, H, W, depth.dtype) * depth[..., None]
+
+
+def depth_from_pointcloud(pts: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """RAY-LENGTH depth (the projection onto the unit ray), not z-depth:
+    [B,H,W,3] -> [B,H,W], up to ~15% above pts[..., 2] at image corners. It
+    matches the reference's dot-product definition (slam_utils.py:124-165);
+    the pointmap store and the consistency checks use z-depth, so this is
+    not the inverse of depth_to_pointcloud."""
+    B, H, W, _ = pts.shape
+    rays = _pixel_rays(K, B, H, W, pts.dtype)
+    rays = rays / torch.linalg.vector_norm(rays, dim=-1, keepdim=True)
+    return (pts * rays).sum(-1)
+
+
+def estimate_scale(d_i, d_j, c_i, c_j) -> torch.Tensor:
+    """Least-squares scale s with D_j ~= s * D_i under dual confidence
+    weights (reference: slam_utils.py:168-190)."""
+    w = torch.clamp_min(c_i * c_j, 1e-6)
+    return (w * d_i * d_j).sum() / torch.clamp_min((w * d_i * d_i).sum(), 1e-12)
+
+
+def estimate_scale_np(d_i, d_j, c_i, c_j) -> float:
+    """Host (numpy) version for per-node graph bookkeeping."""
+    w = np.maximum(c_i.astype(np.float64) * c_j.astype(np.float64), 1e-6)
+    return float(np.sum(w * d_i * d_j) / max(np.sum(w * d_i * d_i), 1e-12))
