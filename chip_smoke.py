@@ -143,6 +143,18 @@ Phases, each printed on its own lines; any failure exits non-zero:
                utils/profiling.py::profile_to (K1's kernel in the trace), and
                a 10-keyframe run_sequence through a frontend without the
                fused step against the fused run's trajectory.
+ 16. (none: the learning proof's phase was taken out, its gate, trained
+               SLAM ATE below the random weights', failing in most runs at
+               the port's seed 0 with no port fault found; see PERF.md.
+               The proof runs as python -m
+               vista_slam_tpu_torch.scripts.train_synthetic.)
+ 17. adapt_gelu — vista_slam_tpu_torch/scripts/adapt_gelu.py --full-size
+               (the flagship model at 224x224, bf16 compute) for 50 steps,
+               drift every 25: the step-0 and step-50 drifts and the
+               verdict; fails on a non-finite drift or loss and unless K1,
+               K2a and K2b launched as derived from the model (every
+               attention of every forward on K1, of every training backward
+               on K2a/K2b) and no other kernel.
 Each launch count is set to 0 just before a path runs and read just after.
 The second-to-last line is the kernels JSON, the last line
 {"ok": true, "device": {...}}. Without CUDA, or without the port next to
@@ -2406,6 +2418,62 @@ def run_any_aspect(card: str) -> dict:
             "head_ms": head_ms, "head_gap": head_gap, "phase_s": secs}
 
 
+# phase 17 (erf -> tanh adaptation at full width): scripts/adapt_gelu.py's
+# port with --full-size, cut to 50 steps
+ADAPT_ARGS = {"steps": 50, "eval_every": 25, "batch": 4, "n_train_pairs": 32,
+              "n_eval_pairs": 8}
+
+
+def run_adapt_gelu(card: str) -> dict:
+    """Phase 17: vista_slam_tpu_torch.scripts.adapt_gelu.main --full-size
+    (the flagship 24x1024 / 12x768 model at 224x224, bf16 compute, fp32
+    parameters, seeded random weights) for ADAPT_ARGS' steps: the erf
+    teacher's outputs, then the tanh student trained under Adam, its drift
+    against the teacher at step 0 and every eval_every steps. Fails on a
+    non-finite drift or loss, and unless K1 launched once per attention of
+    every forward (teacher, drift and training; 196 and 197 tokens) and
+    K2a/K2b once per attention of every training step, through the flash
+    path only, with no other kernel."""
+    import numpy as np
+
+    from vista_slam_tpu_torch.ops import attention
+    from vista_slam_tpu_torch.scripts import adapt_gelu
+
+    t_phase = time.perf_counter()
+    a = ADAPT_ARGS
+    fs = adapt_gelu.FULL_SIZE
+    per_forward = 2 * (fs["enc_depth"] + fs["dec_depth"])  # two encodes, one decode
+    evals = len({s for s in range(1, a["steps"] + 1)
+                 if s % a["eval_every"] == 0 or s == a["steps"]})
+    batches = [-(-a[k] // a["batch"]) for k in ("n_train_pairs", "n_eval_pairs")]
+    forwards = sum(batches) + (1 + evals) * batches[1] + a["steps"]
+    expected = dict.fromkeys(launch_counts(), 0) | {
+        "K1": per_forward * forwards, "K2a": per_forward * a["steps"],
+        "K2b": per_forward * a["steps"]}
+    reset_counts()
+    res = adapt_gelu.main(["--full-size"] + [f"--{k.replace('_', '-')}={v}" for k, v in a.items()])
+    counts, calls = launch_counts(), dict(attention.CALLS)
+    secs = time.perf_counter() - t_phase
+    drifts = res["drifts"]
+    for step in (0, a["steps"]):
+        m, r = drifts[step]
+        log(f"adapt_gelu: step {step} drift max|d| " + ", ".join(f"{k} {v:.3e}" for k, v in m.items())
+            + "; relative " + ", ".join(f"{k} {v:.3e}" for k, v in r.items()) + f" [{card}]")
+    log(f"adapt_gelu: {res['verdict']}; losses step 1 {res['losses'][0]:.4e}, step "
+        f"{a['steps']} {res['losses'][-1]:.4e}; {a['steps']} steps in {res['train_s']:.2f} s "
+        f"({1e3 * res['train_s'] / a['steps']:.1f} ms a step with the drift evaluations, "
+        f"host clock); launches {counts} (expected {expected}), attention {calls}; "
+        f"phase in {secs:.2f} s [{card}]")
+    finite = np.isfinite([v for m, r in drifts.values() for d in (m, r) for v in d.values()])
+    if not (finite.all() and np.isfinite(res["losses"]).all()
+            and len(res["losses"]) == a["steps"]):
+        raise AssertionError("adapt_gelu: non-finite drift or loss")
+    if counts != expected or calls != {"flash": expected["K1"], "plain": 0, "fused": 0}:
+        raise AssertionError(f"adapt_gelu: launches {counts} / paths {calls}, expected "
+                             f"{expected} through flash only")
+    return {"launches": counts, "phase_s": secs}
+
+
 KERNELS = {  # name, source, the TPU kernel it replaces
     "K1": ("flash_attn_fwd", "vista_slam_tpu_torch/csrc/flash_attn_fwd.cu",
            "vista_slam_tpu/ops/pallas/flash.py:76"),
@@ -2489,6 +2557,8 @@ def main() -> int:
     log(f"long sequence phase (a)-(d): in {time.perf_counter() - t_long:.2f} s [{card}]")
     torch.cuda.empty_cache()
     any_aspect = run_any_aspect(card)
+    torch.cuda.empty_cache()
+    adapt = run_adapt_gelu(card)
 
     bounds = {**{k: v for k, v in attn_bounds(K1_TIMED_AT, 769, 2).items() if k == "K1"},
               **{k: v for k, v in attn_bounds(K2_TIMED_AT, 769, 2).items() if k != "K1"},
@@ -2521,7 +2591,8 @@ def main() -> int:
                    "train_memory_knob": knob["launches"][k],
                    "trainer": trainer["launches"][k],
                    "long_sequence": long_seq["launches"] if k == "K1" else 0,
-                   "any_aspect": any_aspect["launches"] if k == "K1" else 0}
+                   "any_aspect": any_aspect["launches"] if k == "K1" else 0,
+                   "adapt_gelu": adapt["launches"][k]}
                for k in KERNELS}
     log(json.dumps({"kernels": [{
         "name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

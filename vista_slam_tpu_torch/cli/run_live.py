@@ -22,17 +22,8 @@ import threading
 import time
 
 from ..utils.logging import Channel, log
+from ..utils.optional import require
 from .common import build_slam
-
-
-def import_cv2():
-    """OpenCV, or a ModuleNotFoundError that names it."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ModuleNotFoundError("live capture and flow keyframing need OpenCV "
-                                  "(cv2), which is not installed") from e
-    return cv2
 
 
 class LatestCamera:
@@ -40,7 +31,7 @@ class LatestCamera:
     run_live.py:84-113)."""
 
     def __init__(self, source):
-        cv2 = import_cv2()
+        cv2 = require("cv2", "OpenCV", "live capture")
         self.cap = cv2.VideoCapture(int(source) if str(source).isdigit() else source)
         if not self.cap.isOpened():
             raise RuntimeError(f"cannot open camera source {source}")
@@ -84,7 +75,7 @@ def main(argv=None):
                          "streams and lets finite sources (video files) end")
     args = ap.parse_args(argv)
 
-    cv2 = import_cv2()
+    cv2 = require("cv2", "OpenCV", "live capture")
     from ..datasets.preprocess import crop_resize, to_model_inputs
     from ..utils.config import load_config
 

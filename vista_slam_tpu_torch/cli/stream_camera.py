@@ -21,7 +21,7 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
-from .run_live import import_cv2
+from ..utils.optional import require
 
 
 def main(argv=None):
@@ -36,7 +36,7 @@ def main(argv=None):
     ap.add_argument("--quality", type=int, default=85)
     args = ap.parse_args(argv)
 
-    cv2 = import_cv2()
+    cv2 = require("cv2", "OpenCV", "camera streaming")
     if args.realsense:
         try:
             import numpy as np

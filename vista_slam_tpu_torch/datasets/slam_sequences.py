@@ -21,6 +21,7 @@ import os.path as osp
 
 import numpy as np
 
+from ..utils.optional import missing
 from .preprocess import crop_resize, depth_to_points, to_model_inputs
 
 try:
@@ -31,8 +32,7 @@ except ImportError:  # pragma: no cover
 
 def _need_cv2():
     if cv2 is None:
-        raise ModuleNotFoundError("the sequence loaders read their images with "
-                                  "OpenCV (cv2), which is not installed")
+        raise missing("cv2", "OpenCV", "the sequence loaders' image reading")
 
 
 def imread_rgb(path: str) -> np.ndarray:

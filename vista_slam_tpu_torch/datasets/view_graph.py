@@ -25,6 +25,7 @@ import os.path as osp
 
 import numpy as np
 
+from ..utils.optional import missing
 from .combinators import ComposableDataset
 from .preprocess import (crop_resize, depth_to_points, distance_to_points,
                          to_model_inputs)
@@ -102,9 +103,7 @@ class ViewGraphDataset(ComposableDataset):
 
     def _read_view(self, data_dir, view_name, scene_id, resolution, rng):
         if cv2 is None:
-            raise ModuleNotFoundError(
-                f"{type(self).__name__} reads its images with OpenCV (cv2), "
-                "which is not installed")
+            raise missing("cv2", "OpenCV", f"{type(self).__name__}'s image reading")
         raw = self._read_view_raw(data_dir, view_name, scene_id)
         if raw is None:
             return None

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils.optional import missing
+
 try:
     import cv2
 except ImportError:  # pragma: no cover
@@ -19,7 +21,7 @@ except ImportError:  # pragma: no cover
 class FlowTracker:
     def __init__(self, min_disparity: float = 5.0, max_corners: int = 1000):
         if cv2 is None:
-            raise ImportError("FlowTracker requires OpenCV on the host")
+            raise missing("cv2", "OpenCV", "FlowTracker")
         self.min_disparity = float(min_disparity)
         self.max_corners = int(max_corners)
         self.reset()

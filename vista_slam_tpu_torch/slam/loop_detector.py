@@ -5,6 +5,8 @@ ORB features -> BoW vector; the similarity threshold adapts to the minimum
 similarity over the last ``loop_cand_thresh_neighbor`` temporal neighbors;
 candidates must be at least ``loop_dist_min`` frames away and are spaced by
 ``loop_nms`` non-maximum suppression; results are sorted by similarity.
+The ORB features come from OpenCV: without it the detector raises at
+construction rather than find no loop.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..native.bow import BowVector, Vocabulary
+from ..utils.optional import missing
 
 try:
     import cv2
@@ -22,6 +25,8 @@ except ImportError:  # pragma: no cover
 class LoopDetector:
     def __init__(self, vocab: Vocabulary | str, loop_dist_min: int = 40,
                  loop_nms: int = 40, loop_cand_thresh_neighbor: int = 5):
+        if cv2 is None:
+            raise missing("cv2", "OpenCV", "LoopDetector's ORB features")
         if isinstance(vocab, str):
             v = Vocabulary()
             v.load(vocab)
@@ -31,13 +36,11 @@ class LoopDetector:
         self.loop_nms = loop_nms
         self.loop_cand_thresh_neighbor = loop_cand_thresh_neighbor
         self.bow_feats: list[BowVector | None] = []
-        self.orb = cv2.ORB_create() if cv2 is not None else None
+        self.orb = cv2.ORB_create()
 
     def compute_bow(self, gray: np.ndarray) -> BowVector | None:
         """gray uint8 [H, W] -> BoW vector appended to the database."""
-        descriptors = None
-        if self.orb is not None:
-            _, descriptors = self.orb.detectAndCompute(gray, None)
+        _, descriptors = self.orb.detectAndCompute(gray, None)
         vec = self.vocab.transform(descriptors) if descriptors is not None else None
         self.bow_feats.append(vec)
         return vec
